@@ -4,19 +4,25 @@
 
 Phases, each printed with its seconds:
   0. card: name and power limit (nvidia-smi), torch's device name
-  1. build: nvcc of every kernel source of the main path
-  2. kernel vs plain: the fused-solve kernel against its plain torch
-     version on random SPD systems (humanoid3d and G1 sizes, both cones,
-     nonzero lam0, batch 2048 and 1000)
+  1. build: nvcc of every kernel source of the main path and of the
+     fused solve's phase-clock variant, all started together; ptxas's
+     registers and spills (any spill fails the run), and the blocks per
+     SM that the occupancy calculator gives at humanoid3d and G1 sizes
+  2. kernel vs plain: both fused-solve entries against the plain torch
+     version on random systems (humanoid3d and G1 sizes, both cones,
+     nonzero lam0, batch 2048 and 1000): the explicit-J^T entry on random
+     SPD systems, the parts entry on random contact-Jacobian parts
   3. main path: a batch of 2048 humanoid3d walk envs under a seeded
      ActorCritic that samples actions. First the kernel's inputs of one
-     step are recorded; the kernel is held against its plain version on
-     them and both are timed with CUDA events beside the bound. A 16-env
-     subset of that step is held against the CPU path. Then the counts
-     are zeroed and the envs take 64 DPEnv.step_auto_reset steps: every
-     kernel must launch in them and every state stays finite
-     Then four more steps under torch.profiler: the device-busy share
-     and the device kernels that take the most time.
+     step (the contact-Jacobian parts) are recorded; the parts entry is
+     held against build_jt + its plain version on them, both are timed
+     with CUDA events beside the bound, and the clock variant gives the
+     kernel's cycles per phase. A 16-env subset of that step is held
+     against the CPU path. Then the counts are zeroed and the envs take
+     64 DPEnv.step_auto_reset steps: every kernel must launch in them,
+     build_jt must not run (J^T is built inside the kernel) and every
+     state stays finite. Then four more steps under torch.profiler: the
+     device-busy share and the device kernels that take the most time.
   4. gate replay: the committed humanoid3d walk gate actor from frame 20
      with mean actions for up to 1000 steps; reward > 90, no overflow
 
@@ -26,6 +32,7 @@ present or any check fails. Imports nothing of JAX.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +81,21 @@ def random_systems(seed, B, nv, K, L):
     lam0 = r.randn(B, n)
     return [np.ascontiguousarray(x, np.float32)
             for x in (M, JT, qf, aref, imp, active, mu, lam0)]
+
+
+def random_parts(seed, B, nv, K, L):
+    """Contact-Jacobian parts like the engine's: orthonormal contact
+    frames, contact points near the root, signed 0/1 dof masks, and
+    L distinct limited dofs. Returns (parts, ld_idx)."""
+    import numpy as np
+
+    r = np.random.RandomState(seed)
+    frame, _ = np.linalg.qr(r.randn(B, K, 3, 3))
+    parts = [r.randn(B, nv, 3), r.randn(B, nv, 3), frame,
+             r.randn(B, K, 3) * 0.3, r.choice([-1.0, 0.0, 1.0], (B, K, nv)),
+             np.where(r.rand(B, L) < 0.5, 1.0, -1.0)]
+    ld_idx = tuple(int(i) for i in np.sort(r.choice(nv, L, replace=False)))
+    return [np.ascontiguousarray(x, np.float32) for x in parts], ld_idx
 
 
 def time_ms(fn, reps):
@@ -125,12 +147,38 @@ def main():
     # ---- 1. build -----------------------------------------------------------
     t0 = phase("build")
     tb = time.perf_counter()
-    lib = fs.build(force=True)
+    libs = fs.build_all(force=True)
     print(f"nvcc {os.path.relpath(fs.SOURCE, REPO)} -> "
-          f"{os.path.relpath(lib, REPO)}: {time.perf_counter() - tb:.2f} s")
-    for line in fs.build.ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+          + ", ".join(os.path.relpath(p, REPO) for p in libs.values())
+          + f" (in parallel): {time.perf_counter() - tb:.2f} s")
+    spills = 0
+    for name, log in fs.build_all.ptxas.items():
+        for line in log.splitlines():
+            if "Compiling entry" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {name} {entry}: {line.strip()}")
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+                if m:
+                    spills += int(m.group(1)) + int(m.group(2))
+    check(spills == 0, f"ptxas reports {spills} bytes of spills")
+    info = {}
+    for label, (nv, K, L) in (("h3d", (34, 16, 28)), ("g1", (43, 24, 37))):
+        info[label] = fs.kernel_info(nv, 3 * K + L, K, parts=True)
+        pl = info[label]["plan"]
+        print(f"fused_solve plan at {label} (nv={nv}, K={K}, L={L}): "
+              f"{pl.threads_per_env} threads per env ({pl.tr} x {pl.tc}), "
+              f"{pl.envs_per_block} env per block, {pl.w_regs} W values "
+              f"per thread; {info[label]['regs']} registers, "
+              f"{info[label]['spill_bytes']} local bytes, "
+              f"{info[label]['smem_bytes']} B dynamic shared memory, "
+              f"{info[label]['blocks_per_sm']} blocks per SM "
+              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+        check(info[label]["smem_bytes"] == pl.smem_bytes,
+              f"launch_plan's shared memory {pl.smem_bytes} B differs from "
+              f"the kernel's {info[label]['smem_bytes']} B")
+        check(info[label]["spill_bytes"] == 0, f"local memory at {label}")
     done(t0, "build")
 
     # ---- 2. kernel vs plain ------------------------------------------------
@@ -142,18 +190,36 @@ def main():
         args = [torch.as_tensor(a, device=dev)
                 for a in random_systems(B + nv, B, nv, K, L)]
         kw = dict(K=K, L=L, iterations=50, pyramidal=pyr)
-        got = fs.fused_solve(*args, **kw)
-        torch.cuda.synchronize()
-        ref = fs.fused_solve_plain(*args, **kw)
-        errs = {name: scaled_err(a, b)
-                for name, a, b in zip(("qacc", "qfrc", "lam"), ref, got)}
-        abs_err = max(float((a - b).abs().max()) for a, b in zip(ref, got))
-        print(f"nv={nv} K={K} L={L} B={B} "
-              f"{'pyramidal' if pyr else 'elliptic'}: scaled err "
-              + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
-              + f" max_abs={abs_err:.2e}")
-        check(all(v < TOL_KERNEL for v in errs.values()),
-              f"kernel disagrees with plain at nv={nv} B={B}: {errs}")
+        parts, ld_idx = random_parts(2 * B + nv, B, nv, K, L)
+        parts = [torch.as_tensor(a, device=dev) for a in parts]
+        M, JT, vectors = args[0], args[1], args[2:]
+        for entry, got, ref in (
+                ("explicit", lambda: fs.fused_solve(*args, **kw),
+                 lambda: fs.fused_solve_plain(*args, **kw)),
+                ("parts", lambda: fs.fused_solve_parts(
+                    M, *parts, *vectors, ld_idx=ld_idx, **kw),
+                 lambda: fs.fused_solve_plain(
+                     M, fs.build_jt(*parts, ld_idx), *vectors, **kw))):
+            call = got
+            got = call()
+            torch.cuda.synchronize()
+            ref = ref()
+            errs = {name: scaled_err(a, b)
+                    for name, a, b in zip(("qacc", "qfrc", "lam"), ref, got)}
+            abs_err = max(float((a - b).abs().max())
+                          for a, b in zip(ref, got))
+            print(f"{entry} nv={nv} K={K} L={L} B={B} "
+                  f"{'pyramidal' if pyr else 'elliptic'}: scaled err "
+                  + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+                  + f" max_abs={abs_err:.2e}")
+            check(all(v < TOL_KERNEL for v in errs.values()),
+                  f"{entry} kernel disagrees with plain at nv={nv} B={B}: "
+                  f"{errs}")
+            if B == 2048 and not pyr:
+                k_ms = time_ms(call, 10)
+                b_ms, b_by = fs.bound_ms(B, nv, K, L, 50, entry=entry)
+                print(f"  {entry} kernel at nv={nv} B={B} on {card}: "
+                      f"{k_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
     done(t0, "kernel vs plain")
 
@@ -176,16 +242,9 @@ def main():
         captured = []
         parts_entry = solver.fused_solve_parts
 
-        def record(M, cd_lin, cd_ang, frame, rpos, w, sign_l, qf, aref, imp,
-                   active, mu, lam0, *, K, L, ld_idx, iterations, pyramidal):
-            JT = fs.build_jt(cd_lin, cd_ang, frame, rpos, w, sign_l, ld_idx)
-            captured.append(((M.contiguous(), JT, qf, aref, imp, active, mu,
-                              lam0), dict(K=K, L=L, iterations=iterations,
-                                          pyramidal=pyramidal)))
-            return parts_entry(M, cd_lin, cd_ang, frame, rpos, w, sign_l, qf,
-                               aref, imp, active, mu, lam0, K=K, L=L,
-                               ld_idx=ld_idx, iterations=iterations,
-                               pyramidal=pyramidal)
+        def record(*args, **kw):
+            captured.append(([a.clone() for a in args], dict(kw)))
+            return parts_entry(*args, **kw)
 
         solver.fused_solve_parts = record
         try:
@@ -193,9 +252,16 @@ def main():
         finally:
             solver.fused_solve_parts = parts_entry
         main_args, main_kw = captured[0]
-        kernel = fs.fused_solve
+        plain_kw = {k: v for k, v in main_kw.items() if k != "ld_idx"}
+        M_m, parts_m, vec_m = main_args[0], main_args[1:7], main_args[7:]
+
+        def plain():   # build_jt + the plain version: the CPU path's function
+            JT = fs.build_jt(*parts_m, main_kw["ld_idx"])
+            return fs.fused_solve_plain(M_m, JT, *vec_m, **plain_kw)
+
+        kernel = fs.fused_solve_parts
         got = kernel(*main_args, **main_kw)
-        ref = fs.fused_solve_plain(*main_args, **main_kw)
+        ref = plain()
         max_abs = max(float((a - b).abs().max()) for a, b in zip(ref, got))
         errs = {name: scaled_err(a, b)
                 for name, a, b in zip(("qacc", "qfrc", "lam"), ref, got)}
@@ -206,16 +272,38 @@ def main():
               f"kernel disagrees with plain on main-path inputs: {errs}")
         # times there, alternating plain, kernel, kernel, plain
         ker = lambda: kernel(*main_args, **main_kw)
-        pln = lambda: fs.fused_solve_plain(*main_args, **main_kw)
-        p1, k1, k2, p2 = (time_ms(pln, 3), time_ms(ker, 20),
-                          time_ms(ker, 20), time_ms(pln, 3))
+        p1, k1, k2, p2 = (time_ms(plain, 3), time_ms(ker, 20),
+                          time_ms(ker, 20), time_ms(plain, 3))
         k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        B_m, nv_m, _ = main_args[1].shape   # J^T (B, nv, n)
+        B_m, nv_m = M_m.shape[:2]
         b_ms, b_by = fs.bound_ms(B_m, nv_m, main_kw["K"], main_kw["L"],
-                                 iterations=main_kw["iterations"])
-        print(f"fused_solve h3d B={n_envs} on {card}: kernel {k1:.4f} / "
-              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})")
+                                 iterations=main_kw["iterations"],
+                                 entry="parts")
+        print(f"fused_solve_parts h3d B={n_envs} on {card}: kernel "
+              f"{k1:.4f} / {k2:.4f} ms, plain (build_jt + fused_solve_plain)"
+              f" {p1:.4f} / {p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{100 * b_ms / k_ms:.1f}% of the bound")
+        # waves: one env is one block, so B beyond blocks-per-SM x SMs
+        # adds a wave of the same length
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        per_wave = sms * info["h3d"]["blocks_per_sm"]
+        waves = []
+        for b in (sms, per_wave, B_m):
+            sub_args = [a[:b] for a in main_args]
+            waves.append((b, time_ms(lambda: kernel(*sub_args, **main_kw),
+                                     20)))
+        print(f"fused_solve_parts time by batch ({sms} SMs x "
+              f"{info['h3d']['blocks_per_sm']} blocks = {per_wave} envs per "
+              f"wave): " + ", ".join(f"B={b} {t:.4f} ms" for b, t in waves))
+        # inside the kernel: clock64() per phase, from the clock variant
+        clocks = fs.phase_cycles(*main_args, **main_kw)
+        cyc = (clocks[:, 1:] - clocks[:, :-1]).double().mean(0).tolist()
+        total = sum(cyc)
+        print(f"fused_solve phase cycles per env (mean of {B_m}, thread 0; "
+              f"{total:.0f} in all): " + ", ".join(
+                  f"{name} {c:.0f} ({100 * c / total:.1f}%)"
+                  for name, c in zip(fs.PHASES, cyc)))
+        check(all(c > 0 for c in cyc), f"phase clocks not increasing: {cyc}")
 
         # first step of a 16-env subset against the port's CPU path
         sub = lambda s: type(s)(*[x[:16] for x in s])
@@ -235,6 +323,9 @@ def main():
               "done flags differ between card and CPU")
 
         torch.cuda.synchronize()
+        jt_builds = []
+        build_jt = fs.build_jt
+        fs.build_jt = lambda *a, **k: jt_builds.append(1) or build_jt(*a, **k)
         fs.fused_solve.launches = 0
         tm = time.perf_counter()
         finite = torch.ones((), dtype=torch.bool, device=dev)
@@ -250,7 +341,10 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - tm
         launches = {"fused_solve": fs.fused_solve.launches}
-    print(f"launches in {n_steps} steps: {launches}")
+        fs.build_jt = build_jt
+    print(f"launches in {n_steps} steps: {launches}; build_jt calls: "
+          f"{len(jt_builds)}")
+    check(not jt_builds, "build_jt ran on the card's main path")
     check(launches["fused_solve"] == n_steps,
           f"fused_solve launched {launches['fused_solve']} times in "
           f"{n_steps} steps")
@@ -315,6 +409,10 @@ def main():
         "max_abs_err": max_abs,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
+        "regs": info["h3d"]["regs"],
+        "spills": spills,
+        "smem_bytes": info["h3d"]["smem_bytes"],
+        "blocks_per_sm": info["h3d"]["blocks_per_sm"],
     }]
     print(f"total: {time.perf_counter() - t_all:.2f} s")
     print(card)

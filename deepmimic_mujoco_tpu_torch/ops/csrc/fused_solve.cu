@@ -1,9 +1,9 @@
-// Fused mass-matrix solve + constraint solve, one thread block per env.
+// Fused mass-matrix solve + constraint solve for Hopper (sm_90a).
 //
 // Replaces the TPU kernel deepmimic_mujoco_tpu/ops/fused_solve.py:
 // _fused_kernel (a Pallas kernel that holds 128 envs in the lanes of one
 // grid program). Per env, in fp32, it computes what that kernel computes:
-//   1. Cholesky M = L L^T (right-looking, in place in shared memory)
+//   1. Cholesky M = L L^T (right-looking)
 //   2. W = L^-1 J^T, and y = L^-1 qf
 //   3. diagA = sum_i W_i^2, R = (1-imp)/imp diagA, b = W^T y - aref
 //   4. 12 power iterations on the active rows -> step = min(1.5/lmax, 1)
@@ -12,259 +12,712 @@
 //      diamond when `pyramidal`), limit rows >= 0, all masked by active
 //   6. qacc = L^-T (y + W lam), qfrc = L (W lam), lam.
 // The step rule, the clamps, the projection and the warm start copy
-// physics/solver.py:_pgs_iterate of the JAX package exactly.
+// physics/solver.py:_pgs_iterate of the JAX package exactly; only the
+// order of the sums differs.
+//
+// Two load paths share the body: the explicit one copies J^T (B, nv, n)
+// into shared memory; the parts one builds the rows of J there from the
+// contact-Jacobian parts (cd_lin, cd_ang, frame, rpos, w, sign_l, ld_idx),
+// so J^T never reaches device memory.
 //
 // What bounds it on the H100: ~0.78 MFLOP per env at humanoid3d size
-// (nv 34, n 76) against ~17 KB of input and output, so the arithmetic
-// sets the bound (ops/fused_solve.py:bound_ms). The design keeps an env's
-// whole working set (M/L, W and the vectors: ~22 KB at humanoid3d, ~37 KB
-// at G1) in one block's static shared memory, sized for nv <= 48 and
-// n <= 112, so only inputs and outputs touch device memory. Rows of
-// M and W use odd strides, so walks along a row (threads over columns)
-// and down a column (threads over rows) are both free of bank conflicts.
-// Reductions over the block use a shared-memory tree.
+// (nv 34, n 76) against ~17 KB of input and output (~10 KB from the
+// parts), so the fp32 rate sets the bound (ops/fused_solve.py:bound_ms).
+// Of that work, 63 matvec pairs (13 power iterations, 50 sweeps) with the
+// nv x n matrix W dominate, so W stays in registers for the whole solve:
+//   - the T = TR x TC threads of an env form a grid; thread (rg, cg) =
+//     (tid % TR, tid / TR) owns rows rg, rg + TR, ... (RPT of them) and
+//     a fixed set of CPT columns: for each of its KC contacts
+//     c = cg + TC q the three rows c, K + c, 2K + c of J (normal and
+//     both tangents), then LC limit rows 3K + cg + TC p. A contact's
+//     triple therefore lies in one thread, and the cone projection runs
+//     in registers without any exchange;
+//   - W v sums over a thread's columns, then over the TC threads of a
+//     row group (__shfl_xor over lane bits TR..16, and one shared-memory
+//     exchange between warps when an env has more than one warp);
+//     W^T u sums over a thread's rows, then over its TR row groups
+//     (__shfl_xor over lane bits 1..TR/2, always inside one warp). The
+//     xor butterfly leaves the same bits in every lane of a group;
+//   - a sweep reads W from no memory and takes no barrier when an env is
+//     one warp (one when it is more); its only shared-memory reads are
+//     one broadcast float4 per column of {R, 1/diag, b, active};
+//   - Cholesky runs in registers (M laid out like W), right-looking, one
+//     barrier per column; W = L^-1 J^T, y = L^-1 qf and the backward
+//     solve for qacc run right-looking too: for each k the owner scales
+//     row k and broadcasts it with __shfl, and every thread updates its
+//     rows, parallel over rows and columns. No phase runs on one thread;
+//   - the loops are free of branches (masks are selects; the iterative
+//     phases use branch-free square roots and quotients, see fsqrt),
+//     since a branch splits the code that the scheduler interleaves;
+//   - dynamic shared memory, sized from (nv, n), holds J^T while it is
+//     loaded, L, the column constants and a few vectors.
+// On the card the kernel is latency-bound: one env is one warp's chain of
+// dependent steps (shuffle levels, the pivot, the projection), and the
+// time is that chain times the waves of envs that the registers allow
+// (~220 per thread at humanoid3d: 8 one-warp envs per SM).
+// The thread grid (the plan) is a template constant; the wrapper
+// (ops/fused_solve.py:launch_plan) picks it from FUSED_SOLVE_PLANS and
+// computes the shared-memory bytes by the same sum as Smem::floats.
+//
+// Built with -DFUSED_SOLVE_CLOCKS, thread 0 of each env writes clock64()
+// at the 8 phase boundaries into clocks (B, 8); the default build has no
+// clock code.
 #include <cuda_runtime.h>
 
 #define NV_MAX 48
 #define N_MAX 112
 #define K_MAX 37
-#define LDM (NV_MAX + 1)
-#define LDW (N_MAX + 1)
-#define THREADS 128
 #define POWER_ITERS 12
+#define FULL 0xffffffffu
 
-__device__ __forceinline__ float block_sum(float v, float* red, int tid) {
-  red[tid] = v;
-  __syncthreads();
-  for (int s = THREADS / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] += red[tid + s];
+#ifdef FUSED_SOLVE_CLOCKS
+#define STAMP(i)                    \
+  if (tid == 0 && a.clocks)         \
+    a.clocks[e * 8 + (i)] = clock64();
+#else
+#define STAMP(i)
+#endif
+
+struct Args {
+  const float *M, *JT;                                // explicit path
+  const float *cd_lin, *cd_ang, *frame, *rpos, *w;   // parts path
+  const float* sign_l;
+  const int* ld_idx;
+  const float *qf, *aref, *imp, *active, *mu, *lam0;
+  float *qacc, *qfrc, *lam;
+  long long* clocks;
+  int nv, n, K, L, iterations, pyramidal;
+};
+
+template <int TR_, int TC_, int RPT_, int KC_, int LC_>
+struct Plan {
+  static constexpr int TR = TR_, TC = TC_, RPT = RPT_, KC = KC_, LC = LC_;
+  static constexpr int CPT = 3 * KC + LC;
+  static constexpr int T = TR * TC;
+  static constexpr int NW = T / 32;
+  static_assert(T % 32 == 0 && 32 % TR == 0, "plan shape");
+};
+
+// (TR, TC, RPT, KC, LC): the plans the kernel is compiled for, in the
+// order launch_plan tries them (ops/fused_solve.py:PLANS).
+#define FUSED_SOLVE_PLANS(X) \
+  X(4, 8, 9, 2, 4)           \
+  X(4, 16, 11, 2, 3)         \
+  X(4, 32, 12, 2, 2)
+
+// Shared-memory layout of one env, in floats (the wrapper's
+// launch_plan computes the same sum): per column group the column
+// constants {R, 1/diag, b, active} as float4s (CVS of them, an odd count,
+// so the 8 column groups of a warp hit disjoint banks), J^T staged by
+// the load phase (nv rows, stride n|1), L (nv rows, stride nv|1), 1/L_kk,
+// y, t, two Cholesky column buffers, two buffers of per-warp row
+// partials when an env spans several warps, and a line that takes the
+// stores of the threads that do not own a Cholesky column.
+template <class P>
+struct Smem {
+  static constexpr int MC = (P::TR * P::RPT + P::TC - 1) / P::TC;
+  static constexpr int CS = P::TR * P::RPT > P::TC * MC ? P::TR * P::RPT
+                                                         : P::TC * MC;
+  static constexpr int CVS = P::CPT | 1;
+  static constexpr int PART = P::NW > 1 ? 2 * P::NW * P::TR * P::RPT : 0;
+  static constexpr int TRASH = P::T + P::TR * P::RPT;
+  __host__ __device__ static constexpr int floats(int nv, int n) {
+    return 4 * P::TC * CVS + nv * (n | 1) + nv * (nv | 1) + 3 * nv +
+           2 * CS + PART + TRASH;
+  }
+};
+
+template <class P>
+__device__ __forceinline__ void grp_sync() {
+  if (P::NW == 1)
+    __syncwarp();
+  else
     __syncthreads();
-  }
-  float r = red[0];
-  __syncthreads();
-  return r;
 }
 
-// Returns (W^T (W v) + R v)[tid] for tid < n (0 otherwise). `u` receives
-// W v. Callers synchronise before `u` or `v` are written again.
-__device__ __forceinline__ float matvec(const float* Ws, const float* v,
-                                        const float* R, float* u, int nv,
-                                        int n, int tid) {
-  if (tid < nv) {
-    const float* row = Ws + tid * LDW;
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-    int c = 0;
-    for (; c + 3 < n; c += 4) {
-      s0 += row[c] * v[c];
-      s1 += row[c + 1] * v[c + 1];
-      s2 += row[c + 2] * v[c + 2];
-      s3 += row[c + 3] * v[c + 3];
+// Global column of slot j of column group cg, or -1 for a pad slot.
+template <class P>
+__device__ __forceinline__ int col_of(int j, int cg, int K, int L) {
+  if (j < 3 * P::KC) {
+    int c = cg + P::TC * (j / 3);
+    return c < K ? (j % 3) * K + c : -1;
+  }
+  int l = cg + P::TC * (j - 3 * P::KC);
+  return l < L ? 3 * K + l : -1;
+}
+
+// Sum over the TR row groups (the W^T u side): inside one warp.
+template <class P>
+__device__ __forceinline__ float colsum(float v) {
+#pragma unroll
+  for (int o = 1; o < P::TR; o <<= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// Sum of RPT row partials over the TC column groups (the W v side).
+template <class P>
+__device__ __forceinline__ void rowsum(float (&u)[P::RPT], float* part,
+                                       int& buf, int tid) {
+#pragma unroll
+  for (int o = P::TR; o < 32; o <<= 1)
+#pragma unroll
+    for (int s = 0; s < P::RPT; ++s) u[s] += __shfl_xor_sync(FULL, u[s], o);
+  if (P::NW > 1) {
+    constexpr int WS = P::TR * P::RPT;
+    float* p = part + buf * P::NW * WS;
+    const int lane = tid & 31, warp = tid >> 5;
+    if (lane < P::TR) {
+#pragma unroll
+      for (int s = 0; s < P::RPT; ++s) p[warp * WS + lane * P::RPT + s] = u[s];
     }
-    for (; c < n; ++c) s0 += row[c] * v[c];
-    u[tid] = (s0 + s1) + (s2 + s3);
+    grp_sync<P>();
+    const int rg = tid % P::TR;
+#pragma unroll
+    for (int s = 0; s < P::RPT; ++s) {
+      float acc = 0.f;
+#pragma unroll
+      for (int wp = 0; wp < P::NW; ++wp) acc += p[wp * WS + rg * P::RPT + s];
+      u[s] = acc;
+    }
+    buf ^= 1;
   }
-  __syncthreads();
-  float r = 0.f;
-  if (tid < n) {
-    for (int i = 0; i < nv; ++i) r += Ws[i * LDW + tid] * u[i];
-    r += R[tid] * v[tid];
-  }
-  return r;
 }
 
-// dst = project(src) * active. Contact c (tid < K) owns rows c, K+c, 2K+c.
-__device__ __forceinline__ void project(const float* src, float* dst,
-                                        const float* act, const float* mus,
-                                        int n, int K, int pyramidal,
+// Sum of one value per column group over all of them (norms).
+template <class P>
+__device__ __forceinline__ float allsum(float v, float* part, int& buf,
                                         int tid) {
-  if (tid < K) {
-    float nrm = fmaxf(src[tid], 0.f);
-    float t1 = src[K + tid];
-    float t2 = src[2 * K + tid];
-    float lim = mus[tid] * nrm;
+#pragma unroll
+  for (int o = P::TR; o < 32; o <<= 1) v += __shfl_xor_sync(FULL, v, o);
+  if (P::NW > 1) {
+    float* p = part + buf * P::NW * P::TR * P::RPT;
+    if ((tid & 31) == 0) p[tid >> 5] = v;
+    grp_sync<P>();
+    v = 0.f;
+#pragma unroll
+    for (int wp = 0; wp < P::NW; ++wp) v += p[wp];
+    buf ^= 1;
+  }
+  return v;
+}
+
+// u = W v over the env, for the thread's rows.
+template <class P>
+__device__ __forceinline__ void wv(const float (&W)[P::RPT][P::CPT],
+                                   const float (&v)[P::CPT],
+                                   float (&u)[P::RPT], float* part, int& buf,
+                                   int tid) {
+#pragma unroll
+  for (int s = 0; s < P::RPT; ++s) {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < P::CPT; ++j) acc = fmaf(W[s][j], v[j], acc);
+    u[s] = acc;
+  }
+  rowsum<P>(u, part, buf, tid);
+}
+
+// (W^T u)[slot j] over the env.
+template <class P>
+__device__ __forceinline__ float wtu(const float (&W)[P::RPT][P::CPT],
+                                     const float (&u)[P::RPT], int j) {
+  float acc = 0.f;
+#pragma unroll
+  for (int s = 0; s < P::RPT; ++s) acc = fmaf(W[s][j], u[s], acc);
+  return colsum<P>(acc);
+}
+
+// Square root and quotient without the IEEE slow-path branches, for the
+// iterative phases: x * rsqrt(x) and __fdividef are within 2 ulp for the
+// normal-range operands they get here (sqrt of >= 1e-24 or 0; divisors
+// clamped to >= 1e-12), and a branch in a sweep splits the code the
+// scheduler can interleave.
+__device__ __forceinline__ float fsqrt(float x) {
+  return x > 0.f ? x * rsqrtf(x) : 0.f;
+}
+
+// lam = project(x) * active: the cone on each of the thread's contacts,
+// >= 0 on its limit rows.
+template <class P, bool PYR>
+__device__ __forceinline__ void project(const float (&x)[P::CPT],
+                                        const float (&act)[P::CPT],
+                                        const float (&mu)[P::KC],
+                                        float (&lam)[P::CPT]) {
+#pragma unroll
+  for (int q = 0; q < P::KC; ++q) {
+    float nrm = fmaxf(x[3 * q], 0.f);
+    float t1 = x[3 * q + 1], t2 = x[3 * q + 2];
+    float lim = mu[q] * nrm;
     float t1s, t2s;
-    if (pyramidal) {
+    if (PYR) {
       float a1 = fabsf(t1), a2 = fabsf(t2);
-      float x = fminf(fmaxf((a1 - a2 + lim) * 0.5f, 0.f), lim);
+      float xx = fminf(fmaxf((a1 - a2 + lim) * 0.5f, 0.f), lim);
       bool over = a1 + a2 > lim;
-      float p1 = over ? x : a1;
-      float p2 = over ? lim - x : a2;
+      float p1 = over ? xx : a1;
+      float p2 = over ? lim - xx : a2;
       t1s = (t1 > 0.f ? p1 : (t1 < 0.f ? -p1 : 0.f));
       t2s = (t2 > 0.f ? p2 : (t2 < 0.f ? -p2 : 0.f));
     } else {
-      float tn = sqrtf(t1 * t1 + t2 * t2 + 1e-24f);
-      float scale = tn > lim ? lim / tn : 1.f;
+      float tn = fsqrt(t1 * t1 + t2 * t2 + 1e-24f);
+      float scale = tn > lim ? __fdividef(lim, tn) : 1.f;
       t1s = t1 * scale;
       t2s = t2 * scale;
     }
-    dst[tid] = nrm * act[tid];
-    dst[K + tid] = t1s * act[K + tid];
-    dst[2 * K + tid] = t2s * act[2 * K + tid];
-  } else if (tid >= 3 * K && tid < n) {
-    dst[tid] = fmaxf(src[tid], 0.f) * act[tid];
+    lam[3 * q] = nrm * act[3 * q];
+    lam[3 * q + 1] = t1s * act[3 * q + 1];
+    lam[3 * q + 2] = t2s * act[3 * q + 2];
   }
+#pragma unroll
+  for (int p = 3 * P::KC; p < P::CPT; ++p) lam[p] = fmaxf(x[p], 0.f) * act[p];
 }
 
-__global__ void __launch_bounds__(THREADS) fused_solve_kernel(
-    const float* __restrict__ M, const float* __restrict__ JT,
-    const float* __restrict__ qf, const float* __restrict__ aref,
-    const float* __restrict__ imp, const float* __restrict__ active,
-    const float* __restrict__ mu, const float* __restrict__ lam0,
-    float* __restrict__ qacc, float* __restrict__ qfrc,
-    float* __restrict__ lam_out, int nv, int n, int K, int iterations,
-    int pyramidal) {
-  __shared__ float Ls[NV_MAX * LDM];  // M, then L in the lower triangle
-  __shared__ float Ws[NV_MAX * LDW];  // J^T, then W = L^-1 J^T
-  __shared__ float inv_ld[NV_MAX];    // 1 / L[k][k]
-  __shared__ float y[NV_MAX];         // L^-1 qf
-  __shared__ float u[NV_MAX];         // W v
-  __shared__ float R[N_MAX], invd[N_MAX], b[N_MAX], act[N_MAX];
-  __shared__ float lam[N_MAX], x[N_MAX], vec[N_MAX];
-  __shared__ float mus[K_MAX];
-  __shared__ float red[THREADS];
+template <class P, bool PARTS, bool PYR>
+__global__ void __launch_bounds__(P::T) fused_solve_kernel(Args a) {
+  constexpr int TR = P::TR, TC = P::TC, RPT = P::RPT, KC = P::KC;
+  constexpr int CPT = P::CPT, MC = Smem<P>::MC, CS = Smem<P>::CS;
+  extern __shared__ __align__(16) float fs_smem[];
+  const int nv = a.nv, n = a.n, K = a.K, L = a.L;
+  const int ldl = nv | 1, ldj = n | 1;
+  float4* cv = reinterpret_cast<float4*>(fs_smem);  // column constants
+  float* Js = fs_smem + 4 * TC * Smem<P>::CVS;      // J^T, staged
+  float* Ls = Js + nv * ldj;                        // L, lower triangle
+  float* inv_ld = Ls + nv * ldl;                    // 1 / L[k][k]
+  float* ybuf = inv_ld + nv;                        // y = L^-1 qf
+  float* tbuf = ybuf + nv;                          // t = W lam
+  float* colbuf = tbuf + nv;                        // Cholesky columns
+  float* part = colbuf + 2 * CS;                    // per-warp partials
+  float* trash = part + Smem<P>::PART;              // non-owners' stores
+  int buf = 0;
 
   const int tid = threadIdx.x;
-  const size_t e = blockIdx.x;
-  const float* Me = M + e * nv * nv;
-  const float* Je = JT + e * nv * n;
+  const int rg = tid % TR, cg = tid / TR;
+  const int src0 = (tid & 31) & ~(TR - 1);  // lane of row group 0
+  const long long e = blockIdx.x;
+  const float4* cvp = cv + cg * Smem<P>::CVS;
+  STAMP(0);
 
-  // ---- 0. load ---------------------------------------------------------
-  for (int i = tid; i < nv * nv; i += THREADS)
-    Ls[(i / nv) * LDM + i % nv] = Me[i];
-  for (int i = tid; i < nv * n; i += THREADS)
-    Ws[(i / n) * LDW + i % n] = Je[i];
-  if (tid < n) {
-    act[tid] = active[e * n + tid];
-    x[tid] = lam0[e * n + tid];
-  }
-  if (tid < K) mus[tid] = mu[e * K + tid];
-  __syncthreads();
-
-  // ---- 1. Cholesky, right-looking, one column per phase ---------------
-  // Phase j reads the pivot and column j unscaled and updates the
-  // trailing lower triangle; column j is scaled in phase j+1, which
-  // reads no entry of it.
-  for (int j = 0; j < nv; ++j) {
-    float d = rsqrtf(fmaxf(Ls[j * LDM + j], 1e-12f));
-    if (j > 0) {
-      float dp = inv_ld[j - 1];
-      for (int i = j - 1 + tid; i < nv; i += THREADS)
-        Ls[i * LDM + j - 1] *= dp;
-    }
-    if (tid == 0) inv_ld[j] = d;
-    int m = nv - j - 1;
-    for (int idx = tid; idx < m * m; idx += THREADS) {
-      int i = j + 1 + idx / m, k = j + 1 + idx % m;
-      if (k <= i)
-        Ls[i * LDM + k] -= (Ls[i * LDM + j] * d) * (Ls[k * LDM + j] * d);
-    }
-    __syncthreads();
-  }
-  {
-    float dp = inv_ld[nv - 1];
-    if (tid == 0) Ls[(nv - 1) * LDM + nv - 1] *= dp;
-  }
-  __syncthreads();
-
-  // ---- 2. W = L^-1 J^T (thread per column), y = L^-1 qf (thread n) ----
-  if (tid < n) {
-    for (int i = 0; i < nv; ++i) {
-      float s = Ws[i * LDW + tid];
-      for (int k = 0; k < i; ++k) s -= Ls[i * LDM + k] * Ws[k * LDW + tid];
-      Ws[i * LDW + tid] = s * inv_ld[i];
-    }
-  } else if (tid == n) {
-    for (int i = 0; i < nv; ++i) {
-      float s = qf[e * nv + i];
-      for (int k = 0; k < i; ++k) s -= Ls[i * LDM + k] * y[k];
-      y[i] = s * inv_ld[i];
+  // ---- 0. load: M into registers (rows as W's, columns cg + TC t), J^T
+  // into shared memory, built there from the parts on that path ---------
+  float A[RPT][MC];
+#pragma unroll
+  for (int s = 0; s < RPT; ++s) {
+    const int i = rg + TR * s;
+#pragma unroll
+    for (int t = 0; t < MC; ++t) {
+      const int k = cg + TC * t;
+      A[s][t] = (i < nv && k < nv) ? a.M[(e * nv + i) * nv + k] : 0.f;
     }
   }
-  __syncthreads();
+  if (!PARTS) {
+#pragma unroll 8
+    for (int idx = tid; idx < nv * n; idx += P::T)
+      Js[(idx / n) * ldj + idx % n] = a.JT[e * nv * n + idx];
+  } else {
+    // contact c, row r: J[rK+c, i] = (frame[c,r,:] . cd_lin[i] +
+    // G[c,r,:] . cd_ang[i]) * w[c,i] with G[c,r,:] = rpos[c] x frame[c,r,:]
+#pragma unroll 4
+    for (int idx = tid; idx < K * nv; idx += P::T) {
+      const int c = idx / nv, i = idx - c * nv;
+      const float* fr = a.frame + (e * K + c) * 9;
+      const float* rp = a.rpos + (e * K + c) * 3;
+      const float* cl = a.cd_lin + (e * nv + i) * 3;
+      const float* ca = a.cd_ang + (e * nv + i) * 3;
+      const float wv = a.w[(e * K + c) * nv + i];
+      const float rx = rp[0], ry = rp[1], rz = rp[2];
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        const float fx = fr[3 * r], fy = fr[3 * r + 1], fz = fr[3 * r + 2];
+        const float gx = ry * fz - rz * fy, gy = rz * fx - rx * fz,
+                    gz = rx * fy - ry * fx;
+        const float lin = fx * cl[0] + fy * cl[1] + fz * cl[2];
+        const float ang = gx * ca[0] + gy * ca[1] + gz * ca[2];
+        Js[i * ldj + r * K + c] = lin * wv + ang * wv;
+      }
+    }
+#pragma unroll 4
+    for (int idx = tid; idx < L * nv; idx += P::T) {
+      const int l = idx / nv, i = idx - l * nv;
+      Js[i * ldj + 3 * K + l] = i == a.ld_idx[l] ? a.sign_l[e * L + l] : 0.f;
+    }
+  }
+  float y[RPT];
+#pragma unroll
+  for (int s = 0; s < RPT; ++s) {
+    const int i = rg + TR * s;
+    y[s] = i < nv ? a.qf[e * nv + i] : 0.f;
+  }
+  STAMP(1);
 
-  // ---- 3. diagA, R, inverse diagonal, b --------------------------------
-  float a_t = 0.f;
-  if (tid < n) {
+  // ---- 1. Cholesky, right-looking, in registers --------------------------
+  // For column j the owners (cg == j % TC) publish it unscaled (the
+  // others store into the trash line); every thread scales the entries
+  // it needs by d = 1/sqrt(pivot), zeroes those outside the trailing
+  // rows and columns, and updates its entries of the trailing block
+  // without a branch (entries above the diagonal are updated too and
+  // never read). Two column buffers: one barrier per column. Column k of
+  // A is final once j reaches k, so L = A d_k is written after the loop.
+  int cb = 0;
+#pragma unroll
+  for (int jt = 0; jt < MC; ++jt) {
+#pragma unroll 1
+    for (int jc = 0; jc < TC; ++jc) {
+      const int j = jc + TC * jt;
+      if (j >= nv) break;
+      float* col = colbuf + cb * CS;
+      float* dst = cg == jc ? col + rg : trash + tid;
+#pragma unroll
+      for (int s = 0; s < RPT; ++s) dst[TR * s] = A[s][jt];
+      grp_sync<P>();
+      const float d = rsqrtf(fmaxf(col[j], 1e-12f));
+      if (tid == 0) inv_ld[j] = d;
+      float ci[RPT], ck[MC];
+#pragma unroll
+      for (int s = 0; s < RPT; ++s) {
+        const int i = rg + TR * s;
+        ci[s] = (i > j && i < nv) ? col[i] * d : 0.f;
+      }
+#pragma unroll
+      for (int t = 0; t < MC; ++t) {
+        const int k = cg + TC * t;
+        ck[t] = k > j ? col[k] * d : 0.f;
+      }
+#pragma unroll
+      for (int s = 0; s < RPT; ++s)
+#pragma unroll
+        for (int t = 0; t < MC; ++t) A[s][t] -= ci[s] * ck[t];
+      cb ^= 1;
+    }
+  }
+  grp_sync<P>();
+#pragma unroll
+  for (int s = 0; s < RPT; ++s) {
+    const int i = rg + TR * s;
+#pragma unroll
+    for (int t = 0; t < MC; ++t) {
+      const int k = cg + TC * t;
+      if (k <= i && i < nv) Ls[i * ldl + k] = A[s][t] * inv_ld[k];
+    }
+  }
+  grp_sync<P>();
+  STAMP(2);
+
+  // ---- 2. W = L^-1 J^T and y = L^-1 qf, right-looking ----------------
+  // Row k = kr + TR ks lives in slot ks of row group kr: its owner scales
+  // it, every thread takes it by __shfl and updates its rows below k.
+  float W[RPT][CPT];
+#pragma unroll
+  for (int s = 0; s < RPT; ++s) {
+    const int i = rg + TR * s;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int c = col_of<P>(j, cg, K, L);
+      W[s][j] = (i < nv && c >= 0) ? Js[i * ldj + c] : 0.f;
+    }
+  }
+#pragma unroll
+  for (int ks = 0; ks < RPT; ++ks) {
+#pragma unroll 1
+    for (int kr = 0; kr < TR; ++kr) {
+      const int k = kr + TR * ks;
+      if (k >= nv) break;
+      const float sc = rg == kr ? inv_ld[k] : 1.f;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) W[ks][j] *= sc;
+      y[ks] *= sc;
+      float wk[CPT];
+#pragma unroll
+      for (int j = 0; j < CPT; ++j)
+        wk[j] = __shfl_sync(FULL, W[ks][j], src0 + kr);
+      const float yk = __shfl_sync(FULL, y[ks], src0 + kr);
+#pragma unroll
+      for (int s = ks; s < RPT; ++s) {
+        const int i = rg + TR * s;
+        const float l =
+            (i > k && i < nv) ? Ls[min(i, nv - 1) * ldl + k] : 0.f;
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) W[s][j] = fmaf(-l, wk[j], W[s][j]);
+        y[s] = fmaf(-l, yk, y[s]);
+      }
+    }
+  }
+  if (cg == 0) {
+#pragma unroll
+    for (int s = 0; s < RPT; ++s)
+      if (rg + TR * s < nv) ybuf[rg + TR * s] = y[s];
+  }
+  STAMP(3);
+
+  // ---- 3. diagA, R, inverse diagonal, b: the column constants ----------
+  float lam[CPT], mu[KC];
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
     float sw = 0.f, sb = 0.f;
-    for (int i = 0; i < nv; ++i) {
-      float w = Ws[i * LDW + tid];
-      sw += w * w;
-      sb += w * y[i];
+#pragma unroll
+    for (int s = 0; s < RPT; ++s) {
+      sw = fmaf(W[s][j], W[s][j], sw);
+      sb = fmaf(W[s][j], y[s], sb);
     }
-    float diagA = fmaxf(sw, 1e-8f);
-    float im = fminf(fmaxf(imp[e * n + tid], 1e-5f), 1.f - 1e-5f);
-    float r = (1.f - im) / im * diagA;
-    R[tid] = r;
-    invd[tid] = 1.f / fmaxf(diagA + r, 1e-8f);
-    b[tid] = sb - aref[e * n + tid];
-    a_t = act[tid];
+    sw = colsum<P>(sw);
+    sb = colsum<P>(sb);
+    const int c = col_of<P>(j, cg, K, L);
+    const size_t o = e * n + c;
+    const float diagA = fmaxf(sw, 1e-8f);
+    const float im = c >= 0 ? fminf(fmaxf(a.imp[o], 1e-5f), 1.f - 1e-5f) : 0.5f;
+    const float r = (1.f - im) / im * diagA;
+    if (rg == 0)
+      cv[cg * Smem<P>::CVS + j] =
+          make_float4(r, 1.f / fmaxf(diagA + r, 1e-8f),
+                      sb - (c >= 0 ? a.aref[o] : 0.f),
+                      c >= 0 ? a.active[o] : 0.f);
+    lam[j] = c >= 0 ? a.lam0[o] : 0.f;  // the warm start, projected below
   }
+#pragma unroll
+  for (int q = 0; q < KC; ++q) {
+    const int c = cg + TC * q;
+    mu[q] = c < K ? a.mu[e * K + c] : 0.f;
+  }
+  grp_sync<P>();
+  STAMP(4);
 
   // ---- 4. power iteration for the step size -----------------------------
-  float anrm = sqrtf(block_sum(a_t * a_t, red, tid));
-  if (tid < n) vec[tid] = a_t / fmaxf(anrm, 1e-12f);
-  float lam_max = 1.f;
-  for (int it = 0; it <= POWER_ITERS; ++it) {
-    if (tid < n) lam[tid] = vec[tid] * act[tid];
-    __syncthreads();
-    float w = matvec(Ws, lam, R, u, nv, n, tid);
-    w = tid < n ? invd[tid] * w * act[tid] : 0.f;
-    float nrm = sqrtf(block_sum(w * w, red, tid));
-    if (it < POWER_ITERS) {
-      if (tid < n) vec[tid] = w / fmaxf(nrm, 1e-12f);
-    } else {
-      lam_max = fmaxf(nrm, 1.f);
+  float vec[CPT], v[CPT], u[RPT];
+  {
+    float s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      vec[j] = cvp[j].w;
+      s2 = fmaf(vec[j], vec[j], s2);
     }
+    const float anrm = fmaxf(fsqrt(allsum<P>(s2, part, buf, tid)), 1e-12f);
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) vec[j] = __fdividef(vec[j], anrm);
+  }
+  float lam_max = 1.f;
+#pragma unroll 1
+  for (int it = 0; it <= POWER_ITERS; ++it) {
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) v[j] = vec[j] * cvp[j].w;
+    wv<P>(W, v, u, part, buf, tid);
+    float s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const float4 c = cvp[j];
+      const float g = wtu<P>(W, u, j) + c.x * v[j];
+      vec[j] = c.y * g * c.w;
+      s2 = fmaf(vec[j], vec[j], s2);
+    }
+    // the last pass only reads the norm: lam_max keeps its value
+    const float nrm = fsqrt(allsum<P>(s2, part, buf, tid));
+    const float dn = fmaxf(nrm, 1e-12f);
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) vec[j] = __fdividef(vec[j], dn);
+    lam_max = fmaxf(nrm, 1.f);
   }
   const float step = fminf(1.5f / lam_max, 1.f);
+  STAMP(5);
 
   // ---- 5. projected sweeps from project(lam0) ---------------------------
-  project(x, lam, act, mus, n, K, pyramidal, tid);
-  __syncthreads();
-  for (int it = 0; it < iterations; ++it) {
-    float g = matvec(Ws, lam, R, u, nv, n, tid);
-    if (tid < n) x[tid] = lam[tid] - step * invd[tid] * (g + b[tid]);
-    __syncthreads();
-    project(x, lam, act, mus, n, K, pyramidal, tid);
-    __syncthreads();
+  {
+    float ac[CPT];
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) ac[j] = cvp[j].w;
+    project<P, PYR>(lam, ac, mu, lam);
   }
+#pragma unroll 1
+  for (int it = 0; it < a.iterations; ++it) {
+    wv<P>(W, lam, u, part, buf, tid);
+    float x[CPT], ac[CPT];
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const float4 c = cvp[j];
+      const float g = wtu<P>(W, u, j) + c.x * lam[j];
+      x[j] = lam[j] - step * c.y * (g + c.z);
+      ac[j] = c.w;
+    }
+    project<P, PYR>(x, ac, mu, lam);
+  }
+  STAMP(6);
 
   // ---- 6. outputs ---------------------------------------------------------
-  if (tid < nv) {  // t = W lam
-    const float* row = Ws + tid * LDW;
-    float s = 0.f;
-    for (int c = 0; c < n; ++c) s += row[c] * lam[c];
-    u[tid] = s;
+  wv<P>(W, lam, u, part, buf, tid);  // t = W lam
+  if (cg == 0) {
+#pragma unroll
+    for (int s = 0; s < RPT; ++s)
+      if (rg + TR * s < nv) tbuf[rg + TR * s] = u[s];
   }
-  __syncthreads();
-  if (tid < nv) {  // qfrc = L t = J^T lam
-    float s = 0.f;
-    for (int k = 0; k <= tid; ++k) s += Ls[tid * LDM + k] * u[k];
-    qfrc[e * nv + tid] = s;
-  } else if (tid == THREADS - 1) {  // qacc = L^-T (y + t)
-    for (int k = nv - 1; k >= 0; --k) {
-      float s = y[k] + u[k];
-      for (int i = k + 1; i < nv; ++i) s -= Ls[i * LDM + k] * x[i];
-      x[k] = s * inv_ld[k];
-      qacc[e * nv + k] = x[k];
+  if (rg == 0) {
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int c = col_of<P>(j, cg, K, L);
+      if (c >= 0) a.lam[e * n + c] = lam[j];
     }
   }
-  if (tid < n) lam_out[e * n + tid] = lam[tid];
+  grp_sync<P>();
+  // qfrc = L t = J^T lam: column group cg takes k = cg, cg + TC, ...
+  float z[RPT];
+#pragma unroll
+  for (int s = 0; s < RPT; ++s) {
+    const int i = rg + TR * s;
+    const float* Lr = Ls + min(i, nv - 1) * ldl;
+    float acc = 0.f;
+#pragma unroll
+    for (int t = 0; t < MC; ++t) {
+      const int k = cg + TC * t;
+      acc += (k <= i && i < nv) ? Lr[k] * tbuf[k] : 0.f;
+    }
+    z[s] = acc;
+  }
+  rowsum<P>(z, part, buf, tid);
+  if (cg == 0) {
+#pragma unroll
+    for (int s = 0; s < RPT; ++s)
+      if (rg + TR * s < nv) a.qfrc[e * nv + rg + TR * s] = z[s];
+  }
+  // qacc = L^-T (y + t), right-looking from the last row up
+#pragma unroll
+  for (int s = 0; s < RPT; ++s) {
+    const int i = rg + TR * s;
+    z[s] = i < nv ? ybuf[i] + u[s] : 0.f;
+  }
+#pragma unroll
+  for (int ks = RPT - 1; ks >= 0; --ks) {
+#pragma unroll 1
+    for (int kr = TR - 1; kr >= 0; --kr) {
+      const int k = kr + TR * ks;
+      if (k < nv) {
+        z[ks] *= rg == kr ? inv_ld[k] : 1.f;
+        const float zk = __shfl_sync(FULL, z[ks], src0 + kr);
+#pragma unroll
+        for (int s = 0; s <= ks; ++s) {
+          const int i = rg + TR * s;
+          const float l = i < k ? Ls[k * ldl + i] : 0.f;
+          z[s] = fmaf(-l, zk, z[s]);
+        }
+      }
+    }
+  }
+  if (cg == 0) {
+#pragma unroll
+    for (int s = 0; s < RPT; ++s)
+      if (rg + TR * s < nv) a.qacc[e * nv + rg + TR * s] = z[s];
+  }
+  STAMP(7);
 }
 
+template <class P>
+static bool plan_is(int tr, int tc, int rpt, int kc, int lc) {
+  return tr == P::TR && tc == P::TC && rpt == P::RPT && kc == P::KC &&
+         lc == P::LC;
+}
+
+template <class P>
+static const void* kernel_of(bool parts, bool pyr) {
+  if (parts)
+    return pyr ? (const void*)fused_solve_kernel<P, true, true>
+               : (const void*)fused_solve_kernel<P, true, false>;
+  return pyr ? (const void*)fused_solve_kernel<P, false, true>
+             : (const void*)fused_solve_kernel<P, false, false>;
+}
+
+template <class P>
+static int launch(const Args& a, int B, bool parts, cudaStream_t stream) {
+  if (a.nv > P::TR * P::RPT || a.K > P::TC * P::KC || a.L > P::TC * P::LC)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * Smem<P>::floats(a.nv, a.n);
+  const bool pyr = a.pyramidal != 0;
+  const void* kern = kernel_of<P>(parts, pyr);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (parts && pyr)
+    fused_solve_kernel<P, true, true><<<B, P::T, smem, stream>>>(a);
+  else if (parts)
+    fused_solve_kernel<P, true, false><<<B, P::T, smem, stream>>>(a);
+  else if (pyr)
+    fused_solve_kernel<P, false, true><<<B, P::T, smem, stream>>>(a);
+  else
+    fused_solve_kernel<P, false, false><<<B, P::T, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// One launch of B envs. JT == NULL selects the parts path (cd_lin ...
+// ld_idx); otherwise the parts pointers are ignored. clocks is read only
+// by the -DFUSED_SOLVE_CLOCKS build. (tr, tc, rpt, kc, lc) must be one
+// of FUSED_SOLVE_PLANS.
 extern "C" int fused_solve_launch(
-    const void* M, const void* JT, const void* qf, const void* aref,
-    const void* imp, const void* active, const void* mu, const void* lam0,
-    void* qacc, void* qfrc, void* lam, int B, int nv, int n, int K, int L,
-    int iterations, int pyramidal, void* stream) {
+    const void* M, const void* JT, const void* cd_lin, const void* cd_ang,
+    const void* frame, const void* rpos, const void* w, const void* sign_l,
+    const void* ld_idx, const void* qf, const void* aref, const void* imp,
+    const void* active, const void* mu, const void* lam0, void* qacc,
+    void* qfrc, void* lam, void* clocks, int B, int nv, int n, int K, int L,
+    int iterations, int pyramidal, int tr, int tc, int rpt, int kc, int lc,
+    void* stream) {
   if (nv < 1 || nv > NV_MAX || n > N_MAX || n != 3 * K + L || K > K_MAX ||
-      B < 0 || iterations < 0)
+      L < 0 || B < 0 || iterations < 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  fused_solve_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)M, (const float*)JT, (const float*)qf,
-      (const float*)aref, (const float*)imp, (const float*)active,
-      (const float*)mu, (const float*)lam0, (float*)qacc, (float*)qfrc,
-      (float*)lam, nv, n, K, iterations, pyramidal);
-  return (int)cudaGetLastError();
+  Args a;
+  a.M = (const float*)M;
+  a.JT = (const float*)JT;
+  a.cd_lin = (const float*)cd_lin;
+  a.cd_ang = (const float*)cd_ang;
+  a.frame = (const float*)frame;
+  a.rpos = (const float*)rpos;
+  a.w = (const float*)w;
+  a.sign_l = (const float*)sign_l;
+  a.ld_idx = (const int*)ld_idx;
+  a.qf = (const float*)qf;
+  a.aref = (const float*)aref;
+  a.imp = (const float*)imp;
+  a.active = (const float*)active;
+  a.mu = (const float*)mu;
+  a.lam0 = (const float*)lam0;
+  a.qacc = (float*)qacc;
+  a.qfrc = (float*)qfrc;
+  a.lam = (float*)lam;
+  a.clocks = (long long*)clocks;
+  a.nv = nv;
+  a.n = n;
+  a.K = K;
+  a.L = L;
+  a.iterations = iterations;
+  a.pyramidal = pyramidal;
+  const bool parts = JT == nullptr;
+  cudaStream_t st = (cudaStream_t)stream;
+#define FS_DISPATCH(tr_, tc_, rpt_, kc_, lc_)                    \
+  if (plan_is<Plan<tr_, tc_, rpt_, kc_, lc_>>(tr, tc, rpt, kc, lc)) \
+    return launch<Plan<tr_, tc_, rpt_, kc_, lc_>>(a, B, parts, st);
+  FUSED_SOLVE_PLANS(FS_DISPATCH)
+#undef FS_DISPATCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// What the compiler and the occupancy calculator say of one plan's
+// kernel: out = {registers per thread, local (spill) bytes per thread,
+// dynamic shared bytes at (nv, n), blocks per SM}.
+extern "C" int fused_solve_info(int tr, int tc, int rpt, int kc, int lc,
+                                int parts, int nv, int n, int* out) {
+#define FS_INFO(tr_, tc_, rpt_, kc_, lc_)                                  \
+  if (plan_is<Plan<tr_, tc_, rpt_, kc_, lc_>>(tr, tc, rpt, kc, lc)) {      \
+    using P = Plan<tr_, tc_, rpt_, kc_, lc_>;                              \
+    const void* kern = kernel_of<P>(parts != 0, false);                    \
+    const int smem = (int)sizeof(float) * Smem<P>::floats(nv, n);                             \
+    cudaFuncAttributes at;                                                 \
+    cudaError_t err = cudaFuncGetAttributes(&at, kern);                    \
+    if (err != cudaSuccess) return (int)err;                               \
+    int blocks = 0;                                                        \
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,     \
+                                                        P::T, smem);       \
+    if (err != cudaSuccess) return (int)err;                               \
+    out[0] = at.numRegs;                                                   \
+    out[1] = (int)at.localSizeBytes;                                       \
+    out[2] = smem;                                                         \
+    out[3] = blocks;                                                       \
+    return 0;                                                              \
+  }
+  FUSED_SOLVE_PLANS(FS_INFO)
+#undef FS_INFO
+  return (int)cudaErrorInvalidValue;
 }

@@ -20,22 +20,25 @@ start through project(lam0) copy ``physics/solver.py:_pgs_iterate`` of
 the JAX package exactly: solver output is semantics (a shifted warm
 start moved the walk gate from 339 to 27).
 
-``fused_solve`` takes the plain version for CPU tensors and launches the
-kernel (``csrc/fused_solve.cu``) for CUDA tensors; there is no fallback
-between them. The kernel is built with nvcc into
+Two entries: ``fused_solve`` takes an explicit J^T (B, nv, n);
+``fused_solve_parts`` (the main path) takes the contact-Jacobian parts,
+and on the card the kernel builds the rows of J from them in its load
+phase, so J^T never reaches device memory. Both take the plain version
+for CPU tensors and launch the kernel (``csrc/fused_solve.cu``) for CUDA
+tensors; there is no fallback between them. On the CPU the parts entry
+is ``build_jt`` + the plain version, as the JAX package builds J^T in
+XLA outside its Pallas kernel. The kernel is built with nvcc into
 ``build/torch_kernels/libfused_solve.so`` at first use and bound with
-ctypes.
+ctypes; ``build_all`` builds the phase-clock variant beside it.
 
 What bounds it on the H100: at humanoid3d size (nv 34, n 76) an env
-moves ~17 KB and does ~0.78 MFLOP, so the work is compute-bound by the
-fp32 rate: for 2048 envs ``bound_ms`` gives 23.9 us of arithmetic at the
-data sheet's 67 TFLOP/s against 10.4 us of memory traffic at 3.35 TB/s
-(counted from the shapes, not measured). The design keeps every
-intermediate of an env in one thread block's shared memory — M, W and
-the vectors, a ~22 KB working set at humanoid3d and ~37 KB at G1 in
-35,476 bytes of static shared memory sized for nv <= 48, n <= 112 — so
-nothing but the inputs and outputs touches device memory, and spreads
-envs over SMs one block each.
+moves ~17 KB (explicit J^T; ~10 KB from the parts) and does ~0.78
+MFLOP, so the fp32 rate sets the bound (``bound_ms``). The kernel keeps
+W in registers for all 63 matvecs: the threads of an env form a
+TR x TC grid (``launch_plan``) in which each owns RPT rows and a fixed
+set of columns (the normal and both tangent rows of its contacts, then
+its limit rows); W v and W^T u reduce with warp shuffles, and the cone
+projection runs in registers. See the source for the rest.
 """
 from __future__ import annotations
 
@@ -44,24 +47,29 @@ import os
 import shutil
 import subprocess
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 POWER_ITERS = 12  # matches physics/solver.py:_pgs_iterate
-# static shared-memory capacity of the kernel (csrc/fused_solve.cu)
+# largest sizes the kernel takes (csrc/fused_solve.cu)
 NV_MAX = 48
 N_MAX = 112
+K_MAX = 37
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                    "fused_solve.cu")
+                      "fused_solve.cu")
 BUILD_DIR = os.path.join(_REPO, "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# library name -> extra nvcc flags: the kernel, and its phase-clock twin
+VARIANTS = {"fused_solve": [],
+            "fused_solve_clocks": ["-DFUSED_SOLVE_CLOCKS"]}
 
-_lib = None
+_libs = {}
 _lib_lock = threading.Lock()
 
 
@@ -73,42 +81,152 @@ def _nvcc() -> str:
                        "from csrc/fused_solve.cu at first use")
 
 
-def build(force: bool = False) -> str:
-    """Compile csrc/fused_solve.cu into the shared library (when missing,
-    older than the source, or ``force``) and return its path. Raises
-    with nvcc's output when the build fails; ptxas's resource report
-    (registers, shared memory, spills) is kept in ``build.ptxas``."""
+def _lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def build_all(force: bool = False, names=tuple(VARIANTS)) -> dict:
+    """Compile csrc/fused_solve.cu into each named shared library (when
+    missing, older than the source, or ``force``), one nvcc process per
+    library, all started together. Returns {name: path}; raises with
+    nvcc's output when a build fails. ptxas's resource report
+    (registers, shared memory, spills per kernel) is kept in
+    ``build_all.ptxas[name]``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, "libfused_solve.so")
-    if (not force and os.path.exists(out)
-            and os.path.getmtime(out) >= os.path.getmtime(SOURCE)):
-        return out
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    build.ptxas = (proc.stdout + proc.stderr).strip()
-    os.replace(tmp, out)
-    return out
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if (not force and os.path.exists(out)
+                and os.path.getmtime(out) >= os.path.getmtime(SOURCE)):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, *VARIANTS[name], "-o", tmp, SOURCE]
+        procs[name] = (cmd, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (cmd, tmp, out, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{log}")
+            continue
+        build_all.ptxas[name] = log.strip()
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _lib_path(name) for name in names}
 
 
-build.ptxas = ""
+build_all.ptxas = {}
 
 
-def _load():
-    global _lib
+def _load(clocks: bool = False):
+    name = "fused_solve_clocks" if clocks else "fused_solve"
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
+        if name not in _libs:
+            lib = ctypes.CDLL(build_all(names=(name,))[name])
             fn = lib.fused_solve_launch
-            fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+            fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 12
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+            info = lib.fused_solve_info
+            info.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            info.restype = ctypes.c_int
+            _libs[name] = lib
+    return _libs[name]
+
+
+# ---------------- launch plan ---------------------------------------------
+
+# (TR, TC, RPT, KC, LC) of every plan the kernel is compiled for, in the
+# order they are tried: csrc/fused_solve.cu:FUSED_SOLVE_PLANS.
+PLANS = ((4, 8, 9, 2, 4), (4, 16, 11, 2, 3), (4, 32, 12, 2, 2))
+W_REGS_BUDGET = 112        # W values one thread holds in registers
+SMEM_PER_BLOCK = 232_448   # H100: most shared memory one block can use
+THREADS_PER_BLOCK = 1024
+
+
+class LaunchPlan(NamedTuple):
+    """How the kernel lays one env over its threads. Thread tid of an env
+    is (rg, cg) = (tid % tr, tid // tr); it holds W[rg + tr s, col] for
+    s < rpt and its cols_per_thread columns (``plan_cells``)."""
+    tr: int                 # row groups
+    tc: int                 # column groups
+    rpt: int                # rows per thread
+    kc: int                 # contacts per column group
+    lc: int                 # limit rows per column group
+    threads_per_env: int
+    envs_per_block: int
+    threads_per_block: int
+    cols_per_thread: int
+    w_regs: int             # W values per thread
+    smem_bytes: int         # dynamic shared memory per block
+
+
+def launch_plan(nv: int, n: int, K: int) -> LaunchPlan:
+    """The first of ``PLANS`` that holds (nv, K, L = n - 3K).
+
+    One env per block: an env of one warp synchronises with __syncwarp,
+    and a block of one env needs no named barriers; the registers (220
+    a thread at humanoid3d: 8 one-warp envs per SM) rather than the
+    block count limit residency. The plans are the first that fit
+    humanoid3d (one warp) and G1 (two warps), then one for the largest
+    sizes the kernel takes. The shared-memory sum is
+    csrc/fused_solve.cu:Smem::floats."""
+    L = n - 3 * K
+    if nv < 1 or nv > NV_MAX or n > N_MAX or K > K_MAX or L < 0:
+        raise ValueError(f"fused_solve kernel holds nv <= {NV_MAX}, "
+                         f"n <= {N_MAX}, K <= {K_MAX}; got nv={nv}, n={n}, "
+                         f"K={K}")
+    for tr, tc, rpt, kc, lc in PLANS:
+        if nv <= tr * rpt and K <= tc * kc and L <= tc * lc:
+            break
+    else:
+        raise ValueError(f"no compiled plan holds nv={nv}, K={K}, L={L}")
+    t = tr * tc
+    nw = t // 32
+    cpt = 3 * kc + lc
+    mc = -(-tr * rpt // tc)                 # M columns per thread
+    smem = 4 * (4 * tc * (cpt | 1)          # column constants (float4)
+                + nv * (n | 1)              # J^T, staged
+                + nv * (nv | 1) + 3 * nv    # L, 1/L_kk, y, t
+                + 2 * max(tr * rpt, tc * mc)            # Cholesky columns
+                + (2 * nw * tr * rpt if nw > 1 else 0)   # warp partials
+                + t + tr * rpt)             # non-owners' Cholesky stores
+    return LaunchPlan(tr, tc, rpt, kc, lc, t, 1, t, cpt, rpt * cpt, smem)
+
+
+def plan_cells(plan: LaunchPlan, nv: int, K: int, L: int):
+    """(tid, row, col) for every entry of W a thread of the env holds
+    (csrc/fused_solve.cu:col_of); pad slots are left out."""
+    for tid in range(plan.threads_per_env):
+        rg, cg = tid % plan.tr, tid // plan.tr
+        cols = []
+        for j in range(plan.cols_per_thread):
+            if j < 3 * plan.kc:
+                c = cg + plan.tc * (j // 3)
+                cols.append((j % 3) * K + c if c < K else -1)
+            else:
+                lim = cg + plan.tc * (j - 3 * plan.kc)
+                cols.append(3 * K + lim if lim < L else -1)
+        for s in range(plan.rpt):
+            row = rg + plan.tr * s
+            if row < nv:
+                yield from ((tid, row, c) for c in cols if c >= 0)
+
+
+def kernel_info(nv: int, n: int, K: int, parts: bool = True) -> dict:
+    """Registers and local (spill) bytes per thread of the plan's kernel,
+    its dynamic shared bytes and the blocks per SM that
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor reports (card only)."""
+    plan = launch_plan(nv, n, K)
+    out = (ctypes.c_int * 4)()
+    err = _load().fused_solve_info(*plan[:5], int(parts), nv, n, out)
+    if err != 0:
+        raise RuntimeError(f"fused_solve_info failed: cudaError {err}")
+    return {"plan": plan, "regs": out[0], "spill_bytes": out[1],
+            "smem_bytes": out[2], "blocks_per_sm": out[3]}
 
 
 # ---------------- plain torch version -----------------------------------
@@ -179,9 +297,9 @@ def fused_solve_plain(M, JT, qf, aref, imp, active, mu, lam0, *, K: int,
 
 # ---------------- wrapper -----------------------------------------------
 
-def _check(name, x, shape, device):
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {x.dtype}")
+def _check(name, x, shape, device, dtype=torch.float32):
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(x.shape)}")
@@ -189,46 +307,64 @@ def _check(name, x, shape, device):
         raise ValueError(f"{name}: on {x.device}, expected {device}")
 
 
+def _check_vectors(B, nv, n, K, dev, qf, aref, imp, active, mu, lam0):
+    for name, x, shape in (("qf", qf, (B, nv)), ("aref", aref, (B, n)),
+                           ("imp", imp, (B, n)), ("active", active, (B, n)),
+                           ("mu", mu, (B, K)), ("lam0", lam0, (B, n))):
+        _check(name, x, shape, dev)
+
+
+def _launch(lib, plan, B, nv, K, L, iterations, pyramidal, M, JT, parts,
+            vectors, clocks=None, stream=None):
+    """One kernel launch; ``JT`` None selects the parts path. All tensors
+    are contiguous and on one device. Returns (qacc, qfrc, lam)."""
+    n = 3 * K + L
+    dev = M.device
+    qacc = torch.empty(B, nv, dtype=torch.float32, device=dev)
+    qfrc = torch.empty(B, nv, dtype=torch.float32, device=dev)
+    lam = torch.empty(B, n, dtype=torch.float32, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    parts_ptrs = [None] * 7 if parts is None else [ptr(x) for x in parts]
+    if stream is None:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.fused_solve_launch(
+        ptr(M), ptr(JT), *parts_ptrs, *[ptr(x) for x in vectors],
+        ptr(qacc), ptr(qfrc), ptr(lam), ptr(clocks), B, nv, n, K, L,
+        int(iterations), int(bool(pyramidal)), *plan[:5], stream)
+    if err != 0:
+        raise RuntimeError(f"fused_solve kernel launch failed: "
+                           f"cudaError {err}")
+    return qacc, qfrc, lam
+
+
 def fused_solve(M, JT, qf, aref, imp, active, mu, lam0, *, K: int, L: int,
                 iterations: int, pyramidal: bool = False):
-    """Batched fused solve. CPU tensors take ``fused_solve_plain``; CUDA
-    tensors launch the kernel (or raise). ``fused_solve.launches``
-    counts kernel launches."""
+    """Batched fused solve from an explicit J^T (B, nv, n). CPU tensors
+    take ``fused_solve_plain``; CUDA tensors launch the kernel (or
+    raise). ``fused_solve.launches`` counts kernel launches of both
+    entries."""
     B, nv, n = JT.shape
     if n != 3 * K + L:
         raise ValueError(f"n={n} rows, expected 3*K+L={3 * K + L}")
     dev = JT.device
-    for name, x, shape in (("M", M, (B, nv, nv)), ("JT", JT, (B, nv, n)),
-                           ("qf", qf, (B, nv)), ("aref", aref, (B, n)),
-                           ("imp", imp, (B, n)), ("active", active, (B, n)),
-                           ("mu", mu, (B, K)), ("lam0", lam0, (B, n))):
-        _check(name, x, shape, dev)
+    _check("M", M, (B, nv, nv), dev)
+    _check("JT", JT, (B, nv, n), dev)
+    _check_vectors(B, nv, n, K, dev, qf, aref, imp, active, mu, lam0)
     if dev.type == "cpu":
         return fused_solve_plain(M, JT, qf, aref, imp, active, mu, lam0,
                                  K=K, L=L, iterations=iterations,
                                  pyramidal=pyramidal)
     if dev.type != "cuda":
         raise ValueError(f"fused_solve: unsupported device {dev}")
-    if nv > NV_MAX or n > N_MAX:
-        raise ValueError(f"fused_solve kernel holds nv <= {NV_MAX} and "
-                         f"n <= {N_MAX}; got nv={nv}, n={n}")
-    ins = [x.contiguous() for x in (M, JT, qf, aref, imp, active, mu, lam0)]
-    qacc = torch.empty(B, nv, dtype=torch.float32, device=dev)
-    qfrc = torch.empty(B, nv, dtype=torch.float32, device=dev)
-    lam = torch.empty(B, n, dtype=torch.float32, device=dev)
-    if B:
-        lib = _load()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.fused_solve_launch(
-                *[x.data_ptr() for x in ins], qacc.data_ptr(),
-                qfrc.data_ptr(), lam.data_ptr(), B, nv, n, K, L,
-                int(iterations), int(bool(pyramidal)), stream)
-        if err != 0:
-            raise RuntimeError(f"fused_solve kernel launch failed: "
-                               f"cudaError {err}")
-        fused_solve.launches += 1
-    return qacc, qfrc, lam
+    plan = launch_plan(nv, n, K)
+    if not B:
+        return (M.new_empty(0, nv), M.new_empty(0, nv), M.new_empty(0, n))
+    vectors = [x.contiguous() for x in (qf, aref, imp, active, mu, lam0)]
+    with torch.cuda.device(dev):
+        out = _launch(_load(), plan, B, nv, K, L, iterations, pyramidal,
+                      M.contiguous(), JT.contiguous(), None, vectors)
+    fused_solve.launches += 1
+    return out
 
 
 fused_solve.launches = 0
@@ -256,16 +392,90 @@ def build_jt(cd_lin, cd_ang, frame, rpos, w, sign_l, ld_idx):
     return torch.cat([JT_c, JT_l], 2)
 
 
+_ld_cache = {}
+
+
+def _ld_tensor(ld_idx: tuple, device) -> torch.Tensor:
+    """int32 tensor of the limited dofs on ``device``, made once."""
+    key = (tuple(ld_idx), str(device))
+    t = _ld_cache.get(key)
+    if t is None:
+        t = torch.tensor(key[0], dtype=torch.int32, device=device)
+        _ld_cache[key] = t
+    return t
+
+
+def _check_parts(M, cd_lin, cd_ang, frame, rpos, w, sign_l, K, L):
+    B, nv, _ = cd_lin.shape
+    dev = cd_lin.device
+    for name, x, shape in (("M", M, (B, nv, nv)),
+                           ("cd_lin", cd_lin, (B, nv, 3)),
+                           ("cd_ang", cd_ang, (B, nv, 3)),
+                           ("frame", frame, (B, K, 3, 3)),
+                           ("rpos", rpos, (B, K, 3)), ("w", w, (B, K, nv)),
+                           ("sign_l", sign_l, (B, L))):
+        _check(name, x, shape, dev)
+    return B, nv, dev
+
+
 def fused_solve_parts(M, cd_lin, cd_ang, frame, rpos, w, sign_l, qf, aref,
                       imp, active, mu, lam0, *, K: int, L: int,
                       ld_idx: tuple, iterations: int,
                       pyramidal: bool = False):
     """Fused solve fed by contact-Jacobian parts (the main-path entry,
-    ``physics/solver.py``). J^T is built in torch, as the JAX package
-    builds it outside its kernel."""
-    JT = build_jt(cd_lin, cd_ang, frame, rpos, w, sign_l, ld_idx)
-    return fused_solve(M.contiguous(), JT, qf, aref, imp, active, mu, lam0,
-                       K=K, L=L, iterations=iterations, pyramidal=pyramidal)
+    ``physics/solver.py``). On the card the kernel builds J^T's rows
+    from the parts in its load phase; on the CPU this is ``build_jt`` +
+    ``fused_solve_plain``."""
+    if len(ld_idx) != L:
+        raise ValueError(f"ld_idx has {len(ld_idx)} dofs, expected L={L}")
+    B, nv, dev = _check_parts(M, cd_lin, cd_ang, frame, rpos, w, sign_l,
+                              K, L)
+    n = 3 * K + L
+    _check_vectors(B, nv, n, K, dev, qf, aref, imp, active, mu, lam0)
+    if dev.type == "cpu":
+        JT = build_jt(cd_lin, cd_ang, frame, rpos, w, sign_l, ld_idx)
+        return fused_solve_plain(M, JT, qf, aref, imp, active, mu, lam0,
+                                 K=K, L=L, iterations=iterations,
+                                 pyramidal=pyramidal)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_solve_parts: unsupported device {dev}")
+    plan = launch_plan(nv, n, K)
+    if not B:
+        return (M.new_empty(0, nv), M.new_empty(0, nv), M.new_empty(0, n))
+    parts = [x.contiguous() for x in (cd_lin, cd_ang, frame, rpos, w,
+                                      sign_l)] + [_ld_tensor(ld_idx, dev)]
+    vectors = [x.contiguous() for x in (qf, aref, imp, active, mu, lam0)]
+    with torch.cuda.device(dev):
+        out = _launch(_load(), plan, B, nv, K, L, iterations, pyramidal,
+                      M.contiguous(), None, parts, vectors)
+    fused_solve.launches += 1
+    return out
+
+
+PHASES = ("load + J build", "Cholesky", "W and y", "diagA/R/b",
+          "power iterations", "sweeps", "outputs")
+
+
+def phase_cycles(M, cd_lin, cd_ang, frame, rpos, w, sign_l, qf, aref, imp,
+                 active, mu, lam0, *, K: int, L: int, ld_idx: tuple,
+                 iterations: int, pyramidal: bool = False):
+    """Run the -DFUSED_SOLVE_CLOCKS build of the parts entry on CUDA
+    tensors and return its clock64() stamps, (B, 8) int64: thread 0 of
+    each env at the start and after each of ``PHASES``. Not counted in
+    ``fused_solve.launches``: it measures, it is not the main path."""
+    B, nv, dev = _check_parts(M, cd_lin, cd_ang, frame, rpos, w, sign_l,
+                              K, L)
+    if dev.type != "cuda":
+        raise ValueError("phase_cycles runs on a CUDA device only")
+    plan = launch_plan(nv, 3 * K + L, K)
+    clocks = torch.zeros(B, 8, dtype=torch.int64, device=dev)
+    parts = [x.contiguous() for x in (cd_lin, cd_ang, frame, rpos, w,
+                                      sign_l)] + [_ld_tensor(ld_idx, dev)]
+    vectors = [x.contiguous() for x in (qf, aref, imp, active, mu, lam0)]
+    with torch.cuda.device(dev):
+        _launch(_load(clocks=True), plan, B, nv, K, L, iterations,
+                pyramidal, M.contiguous(), None, parts, vectors, clocks)
+    return clocks
 
 
 # H100 SXM data-sheet peaks: HBM3 bandwidth and fp32 outside the tensor
@@ -274,21 +484,37 @@ H100_BYTES_PER_S = 3.35e12
 H100_FP32_FLOPS = 67e12
 
 
-def bound_ms(B: int, nv: int, K: int, L: int, iterations: int):
-    """(bound_ms, bound_by) of one batched call: the larger of the bytes
-    it must move (inputs read once, outputs written once) over the
-    memory rate and the fp32 operations over the peak fp32 rate.
-    Operations count the algorithm's work:
-    Cholesky nv^3/3, W = L^-1 J^T nv^2 n, the two triangular vector
+def bound_ms(B: int, nv: int, K: int, L: int, iterations: int,
+             entry: str = "explicit"):
+    """(bound_ms, bound_by) of one batched call of ``entry`` ("explicit":
+    ``fused_solve``; "parts": ``fused_solve_parts``): the larger of the
+    bytes it must move (its inputs read once, outputs written once) over
+    the memory rate and the fp32 operations over the peak fp32 rate.
+    Operations count the algorithm's work in flops (a multiply-add is
+    2): Cholesky nv^3/3, W = L^-1 J^T nv^2 n, the two triangular vector
     solves and the L t product 3 nv^2, diagA and b 4 nv n, and per
     matvec 4 nv n + 2 n (W v, W^T u, + R v) for the 13 power matvecs and
-    the sweeps, plus W lam 2 nv n."""
+    the sweeps, plus W lam 2 nv n. The parts entry adds the J build: per
+    contact row and dof 3 + 3 multiply-adds (frame . cd_lin, G . cd_ang),
+    and per contact the cross products G = rpos x frame (3 x 9 flops)."""
     n = 3 * K + L
-    byts = 4 * B * (nv * nv + nv * n + nv + 4 * n + K   # inputs
-                    + 2 * nv + n)                       # outputs
+    vec_floats = nv + 4 * n + K                         # qf, aref ..., mu
+    out_floats = 2 * nv + n
+    if entry == "explicit":
+        in_floats = nv * nv + nv * n + vec_floats
+        extra_bytes = 0
+        j_ops = 0
+    elif entry == "parts":
+        # M, cd_lin, cd_ang, frame, rpos, w, sign_l; ld_idx once (int32)
+        in_floats = (nv * nv + 6 * nv + 12 * K + K * nv + L + vec_floats)
+        extra_bytes = 4 * L
+        j_ops = 3 * K * nv * 2 * 6 + 27 * K
+    else:
+        raise ValueError(f"entry must be 'explicit' or 'parts': {entry}")
+    byts = 4 * B * (in_floats + out_floats) + extra_bytes
     mv = 4 * nv * n + 2 * n
     ops = B * (nv ** 3 / 3 + nv * nv * n + 3 * nv * nv + 4 * nv * n
-               + (POWER_ITERS + 1 + iterations) * mv + 2 * nv * n)
+               + (POWER_ITERS + 1 + iterations) * mv + 2 * nv * n + j_ops)
     t_bytes = byts / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_FP32_FLOPS * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")

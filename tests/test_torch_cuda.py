@@ -38,6 +38,19 @@ def _mk(seed, B, nv, K, L):
             for x in (M, JT, qf, aref, imp, active, mu, lam0)]
 
 
+def _mk_parts(seed, B, nv, K, L):
+    """Contact-Jacobian parts like the engine's (orthonormal frames,
+    signed 0/1 dof masks, L distinct limited dofs): ([cd_lin, cd_ang,
+    frame, rpos, w, sign_l], ld_idx)."""
+    r = np.random.RandomState(seed)
+    frame, _ = np.linalg.qr(r.randn(B, K, 3, 3))
+    parts = [r.randn(B, nv, 3), r.randn(B, nv, 3), frame,
+             r.randn(B, K, 3) * 0.3, r.choice([-1.0, 0.0, 1.0], (B, K, nv)),
+             np.where(r.rand(B, L) < 0.5, 1.0, -1.0)]
+    ld_idx = tuple(int(i) for i in np.sort(r.choice(nv, L, replace=False)))
+    return [np.ascontiguousarray(x, np.float32) for x in parts], ld_idx
+
+
 def _err(a, b):
     a, b = a.double().cpu(), b.double().cpu()
     return float((a - b).abs().max() / max(float(a.abs().max()), 1.0))
@@ -69,6 +82,44 @@ def test_kernel_matches_plain_on_card(cuda_device, dims, B, pyramidal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 1000, 2048])
+@pytest.mark.parametrize("dims", [H3D, G1], ids=["h3d", "g1"])
+def test_parts_kernel_matches_plain_on_card(cuda_device, dims, B):
+    """The parts entry (J^T built inside the kernel) against build_jt +
+    the plain version; a ragged B leaves the last block part-filled."""
+    nv, K, L = dims
+    M, _, *vectors = (torch.tensor(a, device=cuda_device)
+                      for a in _mk(5, B, nv, K, L))
+    parts, ld_idx = _mk_parts(6, B, nv, K, L)
+    parts = [torch.tensor(a, device=cuda_device) for a in parts]
+    kw = dict(K=K, L=L, iterations=50, pyramidal=B == 1000)
+    before = fs.fused_solve.launches
+    got = fs.fused_solve_parts(M, *parts, *vectors, ld_idx=ld_idx, **kw)
+    torch.cuda.synchronize()
+    assert fs.fused_solve.launches == before + 1
+    want = fs.fused_solve_plain(M, fs.build_jt(*parts, ld_idx), *vectors,
+                                **kw)
+    errs = [_err(a, b) for a, b in zip(want, got)]
+    assert max(errs) < TOL_KERNEL, errs
+
+
+@pytest.mark.gpu
+def test_phase_cycles_on_card(cuda_device):
+    nv, K, L = H3D
+    M, _, *vectors = (torch.tensor(a, device=cuda_device)
+                      for a in _mk(7, 64, nv, K, L))
+    parts, ld_idx = _mk_parts(8, 64, nv, K, L)
+    parts = [torch.tensor(a, device=cuda_device) for a in parts]
+    before = fs.fused_solve.launches
+    clocks = fs.phase_cycles(M, *parts, *vectors, K=K, L=L, ld_idx=ld_idx,
+                             iterations=50)
+    torch.cuda.synchronize()
+    assert fs.fused_solve.launches == before
+    assert clocks.shape == (64, len(fs.PHASES) + 1)
+    assert bool((clocks[:, 1:] > clocks[:, :-1]).all())
+
+
+@pytest.mark.gpu
 def test_env_step_on_card_matches_cpu(cuda_device):
     """One DPEnv step on the card launches the kernel once and agrees
     with the CPU path on the same states and actions."""
@@ -94,6 +145,21 @@ def test_wrapper_refuses_other_devices():
     args = [torch.empty(a.shape, device="meta") for a in _mk(0, 2, *H3D)]
     with pytest.raises(ValueError, match="unsupported device"):
         fs.fused_solve(*args, K=16, L=28, iterations=5)
+
+
+def test_parts_wrapper_refuses_other_devices():
+    nv, K, L = H3D
+    M, _, *vectors = (torch.empty(a.shape, device="meta")
+                      for a in _mk(0, 2, nv, K, L))
+    parts, ld_idx = _mk_parts(0, 2, nv, K, L)
+    parts = [torch.empty(a.shape, device="meta") for a in parts]
+    with pytest.raises(ValueError, match="unsupported device"):
+        fs.fused_solve_parts(M, *parts, *vectors, K=K, L=L, ld_idx=ld_idx,
+                             iterations=5)
+    with pytest.raises(ValueError, match="CUDA device only"):
+        fs.phase_cycles(*(torch.zeros(a.shape) for a in (M, *parts)),
+                        *(torch.zeros(v.shape) for v in vectors), K=K, L=L,
+                        ld_idx=ld_idx, iterations=5)
 
 
 def test_cuda_entry_points_raise_without_card():

@@ -5,9 +5,13 @@ kernel is held to) against the JAX package's Pallas kernel in interpret
 mode (``fused_solve_single(..., interpret=True)``) and against its XLA
 fallback (``physics/solver.py:_pgs_iterate`` over an explicit inverse),
 at humanoid3d (nv 34, K 16, L 28) and G1 (nv 43, K 24, L 37) sizes, with
-both friction cones and a nonzero warm start. Tolerance: max|d|/scale
-< 2e-4, as in tests/test_fused_solve.py. The CUDA kernel itself is held
-to the plain version on the card by tests/test_torch_cuda.py.
+both friction cones and a nonzero warm start; the parts entry
+(``fused_solve_parts``, the main path's) against the JAX package's parts
+entry in interpret mode. Tolerance: max|d|/scale < 2e-4, as in
+tests/test_fused_solve.py. Also the kernel's launch plan (which thread
+holds which entry of W) and the bound's operation and byte counts. The
+CUDA kernel itself is held to the plain version on the card by
+tests/test_torch_cuda.py.
 """
 import numpy as np
 import pytest
@@ -16,7 +20,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from deepmimic_mujoco_tpu.ops.fused_solve import fused_solve_single
+from deepmimic_mujoco_tpu.ops.fused_solve import (fused_solve_parts_single,
+                                                  fused_solve_single)
 from deepmimic_mujoco_tpu.physics import linalg
 from deepmimic_mujoco_tpu.physics.solver import _pgs_iterate
 
@@ -44,6 +49,20 @@ def _mk(seed, B, nv, K, L):
     lam0 = r.randn(B, n)
     return [np.asarray(x, np.float32)
             for x in (M, J, qf, aref, imp, active, mu, lam0)]
+
+
+def _mk_parts(seed, B, nv, K, L):
+    """Contact-Jacobian parts like the engine's: orthonormal contact
+    frames, contact points near the root, signed 0/1 dof masks, and L
+    distinct limited dofs. Returns ([cd_lin, cd_ang, frame, rpos, w,
+    sign_l], ld_idx)."""
+    r = np.random.RandomState(seed)
+    frame, _ = np.linalg.qr(r.randn(B, K, 3, 3))
+    parts = [r.randn(B, nv, 3), r.randn(B, nv, 3), frame,
+             r.randn(B, K, 3) * 0.3, r.choice([-1.0, 0.0, 1.0], (B, K, nv)),
+             np.where(r.rand(B, L) < 0.5, 1.0, -1.0)]
+    ld_idx = tuple(int(i) for i in np.sort(r.choice(nv, L, replace=False)))
+    return [np.asarray(x, np.float32) for x in parts], ld_idx
 
 
 def _plain(arrs, K, L, its, pyramidal):
@@ -103,6 +122,65 @@ def test_plain_matches_pallas_interpret(dims, its, pyramidal):
     _assert_close(want, _plain(arrs, K, L, its, pyramidal))
 
 
+# the parts entry: the same two interpret-mode calls as above
+@pytest.mark.parametrize("dims,its,pyramidal",
+                         [(H3D, 50, False), (G1, 10, True)],
+                         ids=["h3d-elliptic", "g1-pyramidal"])
+def test_parts_matches_pallas_interpret(dims, its, pyramidal):
+    nv, K, L = dims
+    M, _, qf, aref, imp, active, mu, lam0 = _mk(13 + nv, 2, nv, K, L)
+    parts, ld_idx = _mk_parts(17 + nv, 2, nv, K, L)
+    vectors = [qf, aref, imp, active, mu, lam0]
+    want = jax.vmap(lambda M, cl, ca, fr, rp, w, sg, qf, aref, imp, act, mu,
+                    lam0: fused_solve_parts_single(
+                        M, cl, ca, fr, rp, w, sg, qf, aref, imp, act, mu,
+                        lam0, K=K, L=L, ld_idx=ld_idx, iterations=its,
+                        pyramidal=pyramidal, interpret=True))(
+        *map(jnp.asarray, [M, *parts, *vectors]))
+    got = fs.fused_solve_parts(
+        *(torch.tensor(a) for a in [M, *parts, *vectors]), K=K, L=L,
+        ld_idx=ld_idx, iterations=its, pyramidal=pyramidal)
+    _assert_close(want, got)
+
+
+@pytest.mark.parametrize("nv,K,L", [(34, 16, 28), (43, 24, 37),
+                                    (48, 24, 40)],
+                         ids=["34x76", "43x109", "48x112"])
+def test_launch_plan_covers_w(nv, K, L):
+    """Every (row, col) of W lies in exactly one thread of its env, and
+    the plan fits the card: shared memory, threads per block, and the W
+    values a thread holds in registers."""
+    n = 3 * K + L
+    plan = fs.launch_plan(nv, n, K)
+    cells = [(row, col) for _, row, col in fs.plan_cells(plan, nv, K, L)]
+    assert len(cells) == nv * n
+    assert set(cells) == {(i, c) for i in range(nv) for c in range(n)}
+    owners = {}
+    for tid, row, col in fs.plan_cells(plan, nv, K, L):
+        assert 0 <= tid < plan.threads_per_env
+        owners.setdefault(tid, set()).add(col)
+    # a contact's normal and both tangent rows lie in one thread
+    for cols in owners.values():
+        for c in cols:
+            if c < K:
+                assert {c + K, c + 2 * K} <= cols
+    assert plan.smem_bytes <= fs.SMEM_PER_BLOCK
+    assert plan.threads_per_block <= fs.THREADS_PER_BLOCK
+    assert plan.threads_per_block == (plan.threads_per_env
+                                      * plan.envs_per_block)
+    assert plan.threads_per_env % 32 == 0
+    assert plan.w_regs == plan.rpt * plan.cols_per_thread
+    assert plan.w_regs <= fs.W_REGS_BUDGET
+    assert plan[:5] in fs.PLANS
+
+
+def test_launch_plan_refuses_what_no_plan_holds():
+    with pytest.raises(ValueError):
+        fs.launch_plan(fs.NV_MAX + 1, 76, 16)
+    with pytest.raises(ValueError):
+        fs.launch_plan(34, fs.N_MAX + 1, 16)
+
+
 def test_build_jt_matches_explicit_j():
     """J^T from the contact-Jacobian parts equals the J the JAX package
     assembles: rows [frame_r . (cd_lin + cd_ang x r) * w | sign e_dof]."""
@@ -153,6 +231,54 @@ def test_wrapper_rejects_bad_input():
         fs.fused_solve(*args[:7], args[7][:, :-1], K=K, L=L, iterations=5)
 
 
+def test_parts_wrapper_rejects_bad_input():
+    nv, K, L = H3D
+    M, _, *vectors = (torch.tensor(a) for a in _mk(2, 2, nv, K, L))
+    parts, ld_idx = _mk_parts(3, 2, nv, K, L)
+    parts = [torch.tensor(a) for a in parts]
+    kw = dict(K=K, L=L, iterations=5)
+    with pytest.raises(ValueError, match="ld_idx"):
+        fs.fused_solve_parts(M, *parts, *vectors, ld_idx=ld_idx[:-1], **kw)
+    with pytest.raises(ValueError, match="frame"):
+        fs.fused_solve_parts(M, parts[0], parts[1], parts[2][:, :-1],
+                             *parts[3:], *vectors, ld_idx=ld_idx, **kw)
+    with pytest.raises(TypeError):
+        fs.fused_solve_parts(M, parts[0].double(), *parts[1:], *vectors,
+                             ld_idx=ld_idx, **kw)
+
+
 def test_bound_counts_work():
-    ms, by = fs.bound_ms(2048, *H3D, iterations=50)
-    assert by == "operations" and 0.01 < ms < 0.05
+    """bound_ms of both entries at humanoid3d, B 2048, 50 sweeps, against
+    counts worked by hand (nv 34, K 16, L 28, n 76; flops, a
+    multiply-add is 2; fp32 67 TFLOP/s, HBM 3.35 TB/s)."""
+    B, nv, K, L, n = 2048, 34, 16, 28, 76
+    # Cholesky 34^3/3, W 34^2 * 76, triangular vector solves 3 * 34^2,
+    # diagA and b 4 * 34 * 76, 63 matvecs of 4 * 34 * 76 + 2 * 76, W lam
+    # 2 * 34 * 76
+    solve = 39304 / 3 + 87856 + 3468 + 10336 + 63 * 10488 + 5168
+    assert solve == pytest.approx(780673.3333333334)
+    # J build: 48 contact rows x 34 dofs x 6 multiply-adds, and three
+    # cross products (27 flops) per contact
+    jbuild = 48 * 34 * 12 + 16 * 27
+    assert jbuild == 20016
+    # explicit: M 1156, J^T 2584, qf 34, aref/imp/active/lam0 304, mu 16
+    # in; qacc, qfrc 68 and lam 76 out
+    explicit_bytes = 4 * B * (1156 + 2584 + 34 + 304 + 16 + 68 + 76)
+    # parts: M 1156, cd_lin + cd_ang 204, frame + rpos 192, w 544,
+    # sign_l 28 and the same vectors per env; ld_idx once (28 int32)
+    parts_bytes = (4 * B * (1156 + 204 + 192 + 544 + 28 + 34 + 304 + 16
+                            + 68 + 76) + 4 * 28)
+    for entry, ops, byts in (("explicit", solve, explicit_bytes),
+                             ("parts", solve + jbuild, parts_bytes)):
+        ms, by = fs.bound_ms(B, nv, K, L, iterations=50, entry=entry)
+        t_ops = B * ops / 67e12 * 1e3
+        t_bytes = byts / 3.35e12 * 1e3
+        assert t_ops > t_bytes
+        assert by == "operations"
+        assert ms == pytest.approx(t_ops, rel=1e-12)
+    assert fs.bound_ms(B, nv, K, L, 50, "parts")[0] == pytest.approx(
+        0.0244748, rel=1e-5)
+    assert fs.bound_ms(B, nv, K, L, 50)[0] == pytest.approx(
+        0.0238630, rel=1e-5)
+    with pytest.raises(ValueError):
+        fs.bound_ms(B, nv, K, L, 50, entry="other")
