@@ -15,7 +15,9 @@ Phases, each printed with its seconds:
   3. main path: a batch of 2048 humanoid3d walk envs under a seeded
      ActorCritic that samples actions. First the kernel's inputs of one
      step (the contact-Jacobian parts) are recorded; the parts entry is
-     held against build_jt + its plain version on them, both are timed
+     held against build_jt + its plain version on them (scaled by the
+     batch's and by each env's largest value, beside what a wrong
+     kernel would read), both are timed
      with CUDA events beside the bound, and the clock variant gives the
      kernel's cycles per phase. A 16-env subset of that step is held
      against the CPU path. Then the counts are zeroed and the envs take
@@ -25,6 +27,27 @@ Phases, each printed with its seconds:
      device-busy share and the device kernels that take the most time.
   4. gate replay: the committed humanoid3d walk gate actor from frame 20
      with mean actions for up to 1000 steps; reward > 90, no overflow
+  5. G1 main path: 2048 Unitree G1 walk envs under a seeded ActorCritic
+     that samples actions. The kernel (G1 plan) is held against its
+     plain version on the first step's inputs, as in phase 3, and both
+     are timed; then
+     64 step_auto_reset steps with the counts zeroed: 64 launches, no
+     build_jt; env-steps/s and the largest contact overflow
+  6. G1 gate replays: the three committed G1 gate actors (walk and run
+     from frame 20, getup from frame 0) with mean actions, each above
+     its gate (90, 90, 60) with no overflow, beside the JAX replay
+  7. PPO training: the ported CLI's main() in-process on G1 walk at its
+     default widths for two iterations (--total 262144); per iteration
+     the rollout and update times, env-steps/s, losses, KL and overflow;
+     losses finite, params moved, 64 launches per iteration in the
+     training thread (the kernel's count for that thread, zeroed just
+     before each iteration), at least one finished evaluation with one
+     launch per step in the evaluator thread, and no failed evaluation.
+     Then the train state is saved, restored, and one more iteration
+     from it must equal one continued without the round trip (losses
+     within 1e-5 relative). Last, one update minibatch step under
+     torch.profiler, and the optimizer step beside
+     torch.optim.Adam(fused=True)
 
 Then one JSON line per kernel table, and as the last line the result
 object. Exits non-zero, printing no result, when no CUDA device is
@@ -41,6 +64,17 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 JAX_GATE_REPLAY = 615.6  # JAX package replay of the same gate, CPU
 TOL_KERNEL = 2e-4        # max|d|/scale, tests/test_fused_solve.py
 TOL_STEP = 5e-3          # max|d|/scale, tests/test_fused_solve.py
+TOL_RESUME = 1e-5        # relative, resumed vs continued PPO losses
+# (actor file, motion, start frame, gate, JAX package replay):
+# tests/test_checkpoint_gates.py
+# the training CLI at its default widths, two iterations of G1 walk
+PPO_ARGV = ["chip smoke", "--env", "deep_mimic_mujoco", "--motion", "walk",
+            "--robot", "unitree_g1", "--no-wandb", "--no-render",
+            "--total", "262144"]
+G1_GATES = (("g1_walk_gate_actor.npz", "walk", 20, 90.0, 324.3),
+            ("g1_run_gate_actor.npz", "run", 20, 90.0, 123.79),
+            ("g1_getup_gate_actor.npz", "getup_facedown_slow_FSI", 0, 60.0,
+             69.4))
 
 
 def check(cond, msg):
@@ -60,6 +94,14 @@ def done(t0, name):
 def scaled_err(a, b):
     a, b = a.double().cpu(), b.double().cpu()
     return float((a - b).abs().max() / max(float(a.abs().max()), 1.0))
+
+
+def env_scaled_err(ref, got):
+    """Each env held to its own scale: the largest over envs of
+    max|d| / max(max|ref|, 1) within the env."""
+    d = (ref.double() - got.double()).abs().flatten(1).amax(1)
+    scale = ref.double().abs().flatten(1).amax(1).clamp(min=1.0)
+    return float((d / scale).max())
 
 
 def random_systems(seed, B, nv, K, L):
@@ -113,6 +155,361 @@ def time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def capture_parts(env, state, action):
+    """One full-batch env.step with the solver's parts entry recorded:
+    the kernel's inputs on the main path. Returns (args, kwargs)."""
+    from deepmimic_mujoco_tpu_torch.physics import solver
+
+    captured = []
+    parts_entry = solver.fused_solve_parts
+
+    def record(*args, **kw):
+        captured.append(([a.clone() for a in args], dict(kw)))
+        return parts_entry(*args, **kw)
+
+    solver.fused_solve_parts = record
+    try:
+        env.step(state, action)
+    finally:
+        solver.fused_solve_parts = parts_entry
+    return captured[0]
+
+
+def kernel_on_main_path(label, card, args, kw):
+    """Hold the parts entry against build_jt + the plain version on the
+    main path's inputs, then time both (plain, kernel, kernel, plain).
+    Returns the numbers of the kernels line."""
+    from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
+
+    plain_kw = {k: v for k, v in kw.items() if k != "ld_idx"}
+    M, parts, vec = args[0], args[1:7], args[7:]
+
+    def plain():   # build_jt + the plain version: the CPU path's function
+        return fs.fused_solve_plain(M, fs.build_jt(*parts, kw["ld_idx"]),
+                                    *vec, **plain_kw)
+
+    got = fs.fused_solve_parts(*args, **kw)
+    ref = plain()
+    names = ("qacc", "qfrc", "lam")
+    max_abs = max(float((a - b).abs().max()) for a, b in zip(ref, got))
+    errs = {k: scaled_err(a, b) for k, a, b in zip(names, ref, got)}
+    env_errs = {k: env_scaled_err(a, b) for k, a, b in zip(names, ref, got)}
+    B, nv = M.shape[:2]
+    print(f"kernel vs plain on the {label} main path's first-step inputs "
+          f"(B={B}): max_abs={max_abs:.3e}; scaled by the batch's max "
+          + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+          + "; scaled by each env's max "
+          + " ".join(f"{k}={v:.2e}" for k, v in env_errs.items()))
+    # what a wrong kernel would read: another env's results, or an error
+    # as large as the output's mean |entry| in one entry of every env
+    for k, r in zip(names, ref):
+        a = r.double().abs()
+        typical = r.clone()
+        typical[:, 0] += float(a.mean())
+        wrong = {"envs shifted by one": env_scaled_err(r, r.roll(1, 0)),
+                 "mean |entry| added": env_scaled_err(r, typical)}
+        print(f"  {k}: |ref| max {float(a.max()):.4g} median "
+              f"{float(a.median()):.4g} mean {float(a.mean()):.4g}; a "
+              f"wrong kernel would read " + ", ".join(
+                  f"{v:.2e} ({w})" for w, v in wrong.items()))
+        check(all(v > TOL_KERNEL for v in wrong.values()),
+              f"the {TOL_KERNEL} limit would pass a wrong {k}: {wrong}")
+    check(all(v < TOL_KERNEL for v in errs.values())
+          and all(v < TOL_KERNEL for v in env_errs.values()),
+          f"kernel disagrees with plain on {label} main-path inputs: {errs} "
+          f"{env_errs}")
+    ker = lambda: fs.fused_solve_parts(*args, **kw)
+    p1, k1, k2, p2 = (time_ms(plain, 3), time_ms(ker, 20),
+                      time_ms(ker, 20), time_ms(plain, 3))
+    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    b_ms, b_by = fs.bound_ms(B, nv, kw["K"], kw["L"],
+                             iterations=kw["iterations"], entry="parts")
+    plan = fs.launch_plan(nv, 3 * kw["K"] + kw["L"], kw["K"])
+    print(f"fused_solve_parts {label} B={B} (plan {plan.tr} x {plan.tc}) on "
+          f"{card}: kernel {k1:.4f} / {k2:.4f} ms, plain (build_jt + "
+          f"fused_solve_plain) {p1:.4f} / {p2:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}), {100 * b_ms / k_ms:.1f}% of the bound")
+    return dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def rollout_counted(env, net, state, action, n_steps, g_rsi, g_act):
+    """n_steps of step_auto_reset under the sampled policy with the
+    kernel's count zeroed just before; build_jt must not run. Returns
+    (state, action, launches, wall seconds, resets, max overflow)."""
+    import torch
+
+    from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
+    from deepmimic_mujoco_tpu_torch.rl import networks
+
+    dev = state.qpos.device
+    torch.cuda.synchronize()
+    jt_builds = []
+    build_jt = fs.build_jt
+    fs.build_jt = lambda *a, **k: jt_builds.append(1) or build_jt(*a, **k)
+    fs.fused_solve.launches = 0
+    try:
+        tm = time.perf_counter()
+        finite = torch.ones((), dtype=torch.bool, device=dev)
+        n_done = torch.zeros((), dtype=torch.int64, device=dev)
+        ov = torch.zeros((), dtype=torch.int64, device=dev)
+        for _ in range(n_steps):
+            state, out = env.step_auto_reset(state, action, g_rsi)
+            finite &= (torch.isfinite(state.qpos).all()
+                       & torch.isfinite(state.qvel).all()
+                       & torch.isfinite(out.obs).all())
+            n_done += out.done.sum()
+            ov = torch.maximum(ov, out.contact_overflow.max())
+            mean, log_std, _ = net(out.obs)
+            action, _ = networks.sample_action(mean, log_std, g_act)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tm
+        launches = fs.fused_solve.launches
+    finally:
+        fs.build_jt = build_jt
+    print(f"launches in {n_steps} steps: {launches}; build_jt calls: "
+          f"{len(jt_builds)}")
+    check(not jt_builds, "build_jt ran on the card's main path")
+    check(launches == n_steps,
+          f"fused_solve launched {launches} times in {n_steps} steps")
+    check(bool(finite), "non-finite state on the main path")
+    return state, action, launches, wall, int(n_done), int(ov)
+
+
+def replay(env, actor_file, idx_init, max_steps=1000):
+    """A committed gate actor's deterministic episode, counted while it
+    is alive (tests/test_checkpoint_gates.py:_episode_reward). Returns
+    (reward, max overflow, episode length)."""
+    import torch
+
+    from deepmimic_mujoco_tpu_torch.rl.convert import actor_from_npz
+
+    with torch.no_grad():
+        actor = actor_from_npz(os.path.join(
+            REPO, "deepmimic_mujoco_tpu_torch", "data", actor_file),
+            device=env.device)
+        state, obs = env.reset(1, idx_init=idx_init)
+        total, ov, ep_len = 0.0, 0, 0
+        for ep_len in range(1, max_steps + 1):
+            mean, _, _ = actor(obs)
+            state, out = env.step(state, mean)
+            total += float(out.reward[0])   # the done step counts
+            ov = max(ov, int(out.contact_overflow[0]))
+            obs = out.obs
+            if bool(out.done[0]):
+                break
+    return total, ov, ep_len
+
+
+def update_step_profile(ppo, ts, card):
+    """The update's minibatch step (loss, backward, gradient clip, Adam)
+    on a minibatch of the CLI's size, under torch.profiler; then the
+    optimizer step alone, the port's optax-arithmetic Adam beside
+    torch.optim.Adam(fused=True) on copies of the same params and
+    gradients, each over the same number of steps."""
+    import torch
+
+    from deepmimic_mujoco_tpu_torch.rl import networks
+
+    cfg = ppo.cfg
+    net, dev = ts.net, ts.last_obs.device
+    params = list(net.parameters())
+    g = torch.Generator(device=dev).manual_seed(6)
+    n = cfg.minibatch_size
+    with torch.no_grad():
+        obs = ts.last_obs[torch.randint(0, ts.last_obs.shape[0], (n,),
+                                        generator=g, device=dev)]
+        mean, log_std, value = net(obs)
+        action = mean + torch.exp(log_std) * torch.randn(
+            mean.shape, generator=g, device=dev)
+        logp = networks.gaussian_logp(action, mean, log_std)
+        adv = torch.randn(n, generator=g, device=dev)
+        mb = [obs, action, logp, value, adv, value + adv]
+
+    def calls(fn, reps):
+        """(device kernels, device ms, wall ms) per call of fn."""
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            tw = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - tw) * 1e3 / reps
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        return (sum(e.count for e in ev) / reps,
+                sum(getattr(e, "self_device_time_total", 0.0)
+                    for e in ev) / reps / 1e3, wall)
+
+    def timed(fn, reps):
+        """Wall ms per call of fn, unprofiled."""
+        fn()
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - tw) * 1e3 / reps
+
+    k, d_ms, w_ms = calls(lambda: ppo.minibatch_step(ts, mb, params), 20)
+    mb_ms = timed(lambda: ppo.minibatch_step(ts, mb, params), 50)
+    print(f"update minibatch step ({n} samples, net {cfg.net_arch}) on "
+          f"{card}: {k:.0f} device kernels, device busy {d_ms:.4f} ms of "
+          f"{w_ms:.4f} ms wall ({100 * d_ms / w_ms:.1f}%) under the "
+          f"profiler; {mb_ms:.4f} ms per step unprofiled")
+    # the optimizer step alone, on copies holding the last gradients
+    lr = ppo.lr_at(ts.opt.count, ts.lr_scale)
+    mine = [p.detach().clone() for p in params]
+    theirs = [p.detach().clone() for p in params]
+    for a, b, p in zip(mine, theirs, params):
+        a.grad, b.grad = p.grad.clone(), p.grad.clone()
+    port_adam = type(ts.opt)(mine, eps=cfg.adam_eps)
+    torch_adam = torch.optim.Adam(theirs, lr=lr, eps=cfg.adam_eps,
+                                  fused=True)
+    rows = []
+    for name, step in (("port Adam (optax arithmetic)",
+                        lambda: port_adam.step(lr)),
+                       ("torch.optim.Adam(fused=True)", torch_adam.step)):
+        k, d_ms, _ = calls(step, 20)
+        rows.append((name, k, d_ms, timed(step, 200)))
+    print(f"optimizer step over {len(params)} params on {card}: " + "; ".join(
+        f"{name} {k:.0f} device kernels, device {d_ms:.4f} ms, "
+        f"{w_ms:.4f} ms wall" for name, k, d_ms, w_ms in rows))
+    return mb_ms
+
+
+def ppo_training(card, dev, env):
+    """Phase 7. Returns the kernel launches of each iteration in the
+    training thread, read from the kernel's per-thread count (the CLI's
+    evaluator thread launches it too, and keeps its own count)."""
+    import glob
+    import math
+    import threading
+
+    import torch
+
+    from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
+    from deepmimic_mujoco_tpu_torch.rl import checkpoint, ppo as ppo_mod
+    from deepmimic_mujoco_tpu_torch.rl.train import main as train_main
+
+    out_dir = os.path.join(REPO, "build", "ppo_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    by_thread = fs.fused_solve.launches_by_thread
+    me = threading.get_ident()
+    # instrumentation: wall time of each iteration's parts; the training
+    # thread's launch count is zeroed just before each iteration and
+    # read just after it
+    times = []
+
+    def timed(name, fn):
+        def wrapper(self, ts, *a, **k):
+            torch.cuda.synchronize()
+            if name == "train_iter":
+                by_thread[me] = 0
+            t = time.perf_counter()
+            out = fn(self, ts, *a, **k)
+            torch.cuda.synchronize()
+            times.append((name, time.perf_counter() - t,
+                          by_thread.get(me, 0)))
+            return out
+        return wrapper
+
+    originals = {n: getattr(ppo_mod.PPO, n)
+                 for n in ("rollout", "update", "train_iter")}
+    for n, fn in originals.items():
+        setattr(ppo_mod.PPO, n, timed(n, fn))
+    try:
+        argv = [*PPO_ARGV, "--out", out_dir]
+        print("python -m deepmimic_mujoco_tpu_torch.rl.train "
+              + " ".join(repr(a) if " " in a else a for a in argv))
+        before = dict(by_thread)
+        ts = train_main(argv)
+        cli_times = list(times)
+        iter_launches = [t[2] for t in cli_times if t[0] == "train_iter"]
+        # main() has stopped its evaluator; its thread's launches
+        eval_launches = sum(n - before.get(t, 0) for t, n in
+                            by_thread.items() if t != me)
+        rows = [json.loads(line) for line in open(sorted(glob.glob(
+            os.path.join(out_dir, "*_metrics.jsonl")))[-1])]
+        cfg = ppo_mod.PPOConfig(**{k: rows[0]["config"][v] for k, v in (
+            ("n_envs", "n_envs"), ("horizon", "horizon"),
+            ("minibatch_size", "minibatch_size"), ("epochs", "epochs"),
+            ("lr", "learning_rate"), ("total_timesteps",
+                                      "total_timesteps"))})
+        check((cfg.n_envs, cfg.horizon, cfg.minibatch_size, cfg.epochs)
+              == (2048, 64, 4096, 20) and tuple(rows[0]["config"]["arch"])
+              == (256, 128), f"not the CLI's default widths: {cfg}")
+        iters = [r for r in rows if "pg_loss" in r]
+        check(len(iters) == 2, f"{len(iters)} iterations logged, not 2")
+        per_it = [t for t in cli_times if t[0] == "train_iter"]
+        roll = [t for t in cli_times if t[0] == "rollout"]
+        upd = [t for t in cli_times if t[0] == "update"]
+        spi = cfg.n_envs * cfg.horizon
+        for i, r in enumerate(iters):
+            print(f"PPO iteration {i + 1} on {card}: "
+                  f"{spi / per_it[i][1]:.1f} env-steps/s ({per_it[i][1]:.3f} "
+                  f"s: rollout {roll[i][1]:.3f} s, update {upd[i][1]:.3f} s "
+                  f"for {cfg.epochs} x {spi // cfg.minibatch_size} "
+                  f"minibatches); pg_loss {r['pg_loss']:.6f} v_loss "
+                  f"{r['v_loss']:.6f} entropy {r['entropy']:.4f} approx_kl "
+                  f"{r['approx_kl']:.6f} clip_frac {r['clip_frac']:.4f} "
+                  f"mean_reward {r['mean_reward']:.4f} "
+                  f"contact_overflow_max {r['contact_overflow_max']}; "
+                  f"kernel launches in the training thread "
+                  f"{iter_launches[i]}")
+            check(all(math.isfinite(r[k]) for k in (
+                "pg_loss", "v_loss", "entropy", "approx_kl")),
+                f"non-finite losses in iteration {i + 1}: {r}")
+        check(iter_launches == [cfg.horizon] * len(iters),
+              f"kernel launches per iteration: {iter_launches}")
+        evals = [r for r in rows if "eval_episode_reward" in r]
+        eval_steps = sum(r["eval_episode_length"] for r in evals)
+        print(f"evaluator thread: {len(evals)} eval(s): "
+              + ", ".join(f"len {r['eval_episode_length']} reward "
+                          f"{r['eval_episode_reward']:.2f}" for r in evals)
+              + f"; {eval_launches} kernel launches in {eval_steps} steps")
+        check(evals, "the evaluator finished no evaluation")
+        check(eval_launches == eval_steps,
+              f"{eval_launches} evaluator launches in {eval_steps} steps")
+        ppo = ppo_mod.PPO(env, cfg)
+        init = ppo.make_net(torch.Generator().manual_seed(0)).state_dict()
+        moved = max(float((v.to(dev) - ts.net.state_dict()[k]).abs().max())
+                    for k, v in init.items())
+        print(f"params moved by up to {moved:.4e} from their initial values")
+        check(moved > 0, "the params did not move")
+
+        # resume equals continue: save, run one more iteration; restore
+        # into a fresh state and run it again
+        path = checkpoint.save(os.path.join(out_dir, "round_trip.pt"), ts)
+        times.clear()
+        ts, cont = ppo.train_iter(ts)
+        back = checkpoint.restore(path, ppo.init(seed=1))
+        back, res = ppo.train_iter(back)
+        errs = {k: abs(float(getattr(cont, k)) - float(getattr(res, k)))
+                / max(abs(float(getattr(cont, k))), 1e-12)
+                for k in ("pg_loss", "v_loss", "entropy", "approx_kl",
+                          "clip_frac", "mean_reward")}
+        print("iteration 3 resumed from the checkpoint vs continued: "
+              "relative diff " + " ".join(f"{k}={v:.2e}"
+                                          for k, v in errs.items())
+              + f"; pg_loss {float(cont.pg_loss):.6f} vs "
+                f"{float(res.pg_loss):.6f}")
+        check(all(v < TOL_RESUME for v in errs.values()),
+              f"resumed iteration differs from the continued one: {errs}")
+        launches = [t[2] for t in times if t[0] == "train_iter"]
+        check(launches == [cfg.horizon] * 2,
+              f"launches per resumed/continued iteration: {launches}")
+    finally:
+        for n, fn in originals.items():
+            setattr(ppo_mod.PPO, n, fn)
+    update_step_profile(ppo, ts, card)
+    return iter_launches, eval_launches
+
+
 def main():
     import torch
 
@@ -122,9 +519,7 @@ def main():
     sys.path.insert(0, REPO)
     from deepmimic_mujoco_tpu_torch.envs import DPEnv
     from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
-    from deepmimic_mujoco_tpu_torch.physics import solver
     from deepmimic_mujoco_tpu_torch.rl import networks
-    from deepmimic_mujoco_tpu_torch.rl.convert import actor_from_npz
     from deepmimic_mujoco_tpu_torch.utils.device import fp32_physics
 
     t_all = time.perf_counter()
@@ -239,52 +634,12 @@ def main():
 
         # the kernel's inputs on the main path: one full-batch step with
         # the solver's parts entry recorded (outside the counted window)
-        captured = []
-        parts_entry = solver.fused_solve_parts
-
-        def record(*args, **kw):
-            captured.append(([a.clone() for a in args], dict(kw)))
-            return parts_entry(*args, **kw)
-
-        solver.fused_solve_parts = record
-        try:
-            env.step(state, action)
-        finally:
-            solver.fused_solve_parts = parts_entry
-        main_args, main_kw = captured[0]
-        plain_kw = {k: v for k, v in main_kw.items() if k != "ld_idx"}
-        M_m, parts_m, vec_m = main_args[0], main_args[1:7], main_args[7:]
-
-        def plain():   # build_jt + the plain version: the CPU path's function
-            JT = fs.build_jt(*parts_m, main_kw["ld_idx"])
-            return fs.fused_solve_plain(M_m, JT, *vec_m, **plain_kw)
-
+        main_args, main_kw = capture_parts(env, state, action)
+        h3d_k = kernel_on_main_path("h3d", card, main_args, main_kw)
         kernel = fs.fused_solve_parts
-        got = kernel(*main_args, **main_kw)
-        ref = plain()
-        max_abs = max(float((a - b).abs().max()) for a, b in zip(ref, got))
-        errs = {name: scaled_err(a, b)
-                for name, a, b in zip(("qacc", "qfrc", "lam"), ref, got)}
-        print(f"kernel vs plain on the main path's first-step inputs "
-              f"(B={n_envs}): max_abs={max_abs:.3e} scaled "
-              + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
-        check(all(v < TOL_KERNEL for v in errs.values()),
-              f"kernel disagrees with plain on main-path inputs: {errs}")
-        # times there, alternating plain, kernel, kernel, plain
-        ker = lambda: kernel(*main_args, **main_kw)
-        p1, k1, k2, p2 = (time_ms(plain, 3), time_ms(ker, 20),
-                          time_ms(ker, 20), time_ms(plain, 3))
-        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        B_m, nv_m = M_m.shape[:2]
-        b_ms, b_by = fs.bound_ms(B_m, nv_m, main_kw["K"], main_kw["L"],
-                                 iterations=main_kw["iterations"],
-                                 entry="parts")
-        print(f"fused_solve_parts h3d B={n_envs} on {card}: kernel "
-              f"{k1:.4f} / {k2:.4f} ms, plain (build_jt + fused_solve_plain)"
-              f" {p1:.4f} / {p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-              f"{100 * b_ms / k_ms:.1f}% of the bound")
         # waves: one env is one block, so B beyond blocks-per-SM x SMs
         # adds a wave of the same length
+        B_m = main_args[0].shape[0]
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         per_wave = sms * info["h3d"]["blocks_per_sm"]
         waves = []
@@ -322,33 +677,8 @@ def main():
         check(bool((o_cpu.done == o_gpu.done.cpu()).all()),
               "done flags differ between card and CPU")
 
-        torch.cuda.synchronize()
-        jt_builds = []
-        build_jt = fs.build_jt
-        fs.build_jt = lambda *a, **k: jt_builds.append(1) or build_jt(*a, **k)
-        fs.fused_solve.launches = 0
-        tm = time.perf_counter()
-        finite = torch.ones((), dtype=torch.bool, device=dev)
-        n_done = torch.zeros((), dtype=torch.int64, device=dev)
-        for _ in range(n_steps):
-            state, out = env.step_auto_reset(state, action, g_rsi)
-            finite &= (torch.isfinite(state.qpos).all()
-                       & torch.isfinite(state.qvel).all()
-                       & torch.isfinite(out.obs).all())
-            n_done += out.done.sum()
-            mean, log_std, _ = net(out.obs)
-            action, _ = networks.sample_action(mean, log_std, g_act)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - tm
-        launches = {"fused_solve": fs.fused_solve.launches}
-        fs.build_jt = build_jt
-    print(f"launches in {n_steps} steps: {launches}; build_jt calls: "
-          f"{len(jt_builds)}")
-    check(not jt_builds, "build_jt ran on the card's main path")
-    check(launches["fused_solve"] == n_steps,
-          f"fused_solve launched {launches['fused_solve']} times in "
-          f"{n_steps} steps")
-    check(bool(finite), "non-finite state on the main path")
+        state, action, h3d_launches, wall, n_done, _ = rollout_counted(
+            env, net, state, action, n_steps, g_rsi, g_act)
     # where the time goes: a short profiled window of the same loop
     prof_steps = 4
     with torch.no_grad(), torch.profiler.profile(activities=[
@@ -375,44 +705,83 @@ def main():
               f"{e.count // prof_steps:5d}/step  {e.key[:90]}")
     print(f"main path on {card}: {n_envs} envs x {n_steps} steps in "
           f"{wall:.3f} s = {n_envs * n_steps / wall:.1f} env-steps/s "
-          f"(policy + sampling + step_auto_reset; {int(n_done)} resets)")
+          f"(policy + sampling + step_auto_reset; {n_done} resets)")
     done(t0, "main path")
 
     # ---- 4. gate replay -----------------------------------------------------
     t0 = phase("gate replay")
-    with torch.no_grad():
-        actor = actor_from_npz(os.path.join(
-            REPO, "deepmimic_mujoco_tpu_torch", "data",
-            "h3d_walk_gate_actor.npz"), device=dev)
-        state, obs = env.reset(1, idx_init=20)
-        total, ov, ep_len = 0.0, 0, 0
-        for ep_len in range(1, 1001):
-            mean, _, _ = actor(obs)
-            state, out = env.step(state, mean)
-            total += float(out.reward[0])   # the done step counts
-            ov = max(ov, int(out.contact_overflow[0]))
-            obs = out.obs
-            if bool(out.done[0]):
-                break
+    total, ov, ep_len = replay(env, "h3d_walk_gate_actor.npz", 20)
     print(f"gate replay on {card}: reward {total:.2f} over {ep_len} steps "
           f"(JAX replay {JAX_GATE_REPLAY}), max contact overflow {ov}")
     check(total > 90.0, f"gate reward {total:.2f} <= 90")
     check(ov == 0, f"gate episode dropped {ov} active contacts")
+    del env, cpu_env
     done(t0, "gate replay")
+
+    # ---- 5. G1 main path ---------------------------------------------------
+    t0 = phase("G1 main path")
+    with torch.no_grad():
+        g1 = DPEnv(motion="walk", robot="unitree_g1", device=dev)
+        net = networks.ActorCritic(
+            g1.obs_size, g1.action_size, device="cpu",
+            generator=torch.Generator().manual_seed(3)).to(dev)
+        g_rsi = torch.Generator(device=dev).manual_seed(4)
+        g_act = torch.Generator(device=dev).manual_seed(5)
+        state, obs = g1.reset(n_envs, generator=g_rsi)
+        mean, log_std, _ = net(obs)
+        action, _ = networks.sample_action(mean, log_std, g_act)
+        g1_args, g1_kw = capture_parts(g1, state, action)
+        check((g1_kw["K"], g1_kw["L"]) == (24, 37),
+              f"G1 solve has K={g1_kw['K']}, L={g1_kw['L']}")
+        g1_k = kernel_on_main_path("G1", card, g1_args, g1_kw)
+        state, action, g1_launches, wall, n_done, ov = rollout_counted(
+            g1, net, state, action, n_steps, g_rsi, g_act)
+    print(f"G1 main path on {card}: {n_envs} envs x {n_steps} steps in "
+          f"{wall:.3f} s = {n_envs * n_steps / wall:.1f} env-steps/s "
+          f"(policy + sampling + step_auto_reset; {n_done} resets), "
+          f"max contact overflow {ov}")
+    done(t0, "G1 main path")
+
+    # ---- 6. G1 gate replays ------------------------------------------------
+    t0 = phase("G1 gate replays")
+    for actor_file, motion, idx0, gate, jax_rew in G1_GATES:
+        env = g1 if motion == "walk" else DPEnv(
+            motion=motion, robot="unitree_g1", device=dev)
+        total, ov, ep_len = replay(env, actor_file, idx0)
+        print(f"G1 {motion} gate replay on {card}: reward {total:.2f} over "
+              f"{ep_len} steps from frame {idx0} (JAX replay {jax_rew}, "
+              f"gate {gate}), max contact overflow {ov}")
+        check(total > gate, f"G1 {motion} gate reward {total:.2f} <= {gate}")
+        check(ov == 0, f"G1 {motion} gate episode dropped {ov} contacts")
+    done(t0, "G1 gate replays")
+
+    # ---- 7. PPO training ---------------------------------------------------
+    t0 = phase("PPO training")
+    ppo_launches, eval_launches = ppo_training(card, dev, g1)
+    done(t0, "PPO training")
 
     kernels = [{
         "name": "fused_solve",
         "route": "cuda",
         "source": "deepmimic_mujoco_tpu_torch/ops/csrc/fused_solve.cu",
         "replaces": "deepmimic_mujoco_tpu/ops/fused_solve.py:67",
-        "launches": launches["fused_solve"],
-        "max_abs_err": max_abs,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        # this slice's main path: G1 walk, B 2048
+        "launches": g1_launches,
+        **g1_k,
         "library_ms": None,
-        "regs": info["h3d"]["regs"],
+        "regs": info["g1"]["regs"],
         "spills": spills,
-        "smem_bytes": info["h3d"]["smem_bytes"],
-        "blocks_per_sm": info["h3d"]["blocks_per_sm"],
+        "smem_bytes": info["g1"]["smem_bytes"],
+        "blocks_per_sm": info["g1"]["blocks_per_sm"],
+        "paths": {
+            "h3d_walk_b2048": {"launches": h3d_launches, **h3d_k,
+                               "regs": info["h3d"]["regs"],
+                               "blocks_per_sm": info["h3d"]["blocks_per_sm"]},
+            "g1_walk_b2048": {"launches": g1_launches, **g1_k},
+            "ppo_g1_walk": {"launches": sum(ppo_launches),
+                            "launches_per_iteration": ppo_launches,
+                            "evaluator_launches": eval_launches},
+        },
     }]
     print(f"total: {time.perf_counter() - t_all:.2f} s")
     print(card)

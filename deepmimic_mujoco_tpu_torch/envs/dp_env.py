@@ -28,6 +28,7 @@ from deepmimic_mujoco_tpu_torch.envs.config import (
 )
 from deepmimic_mujoco_tpu_torch.envs.spec import RobotSpec
 from deepmimic_mujoco_tpu_torch.mocap import load_clip
+from deepmimic_mujoco_tpu_torch.mocap.loader import resample_clip_speed
 from deepmimic_mujoco_tpu_torch.models import load_model
 from deepmimic_mujoco_tpu_torch.models.physics_model import EULER
 from deepmimic_mujoco_tpu_torch.physics.step import Engine
@@ -82,6 +83,7 @@ class DPEnv:
                  max_contacts: Optional[int] = None,
                  iterations: Optional[int] = None,
                  integrator: Optional[int] = None,
+                 speed: float = 1.0,
                  warm_start_lam: Optional[bool] = None,
                  mesh_subcapsules: Optional[int] = None,
                  cone: Optional[str] = None,
@@ -115,6 +117,9 @@ class DPEnv:
             for k, v in self.reward_tables.items()}
 
         clip = load_clip(self.motion_config.mocap_path, self.model)
+        if speed != 1.0:
+            clip = resample_clip_speed(clip, speed)
+        self.speed = speed
         self.clip = clip
         f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                         device=self.device)

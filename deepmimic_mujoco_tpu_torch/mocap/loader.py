@@ -186,6 +186,40 @@ def _interpolate(arrs, ratio: int):
     return out
 
 
+def resample_clip_speed(clip: MocapClip, speed: float) -> MocapClip:
+    """Time-stretch a clip by ``1/speed`` at the same frame dt.
+
+    ``speed=0.5`` doubles the frame count and halves every velocity: a
+    slowed-down version of the motion for curriculum training (hard
+    clips like G1 run). Fractional source indices are sampled in
+    [0, T-1] only, so the lerp never crosses a wrap seam (the root xy
+    jump of locomotion clips). Quaternions are lerped and renormalized
+    (inter-frame rotations are small).
+    """
+    if not speed > 0:
+        raise ValueError(f"speed must be positive, got {speed}")
+    T = len(clip.qpos)
+    n_new = int(np.floor((T - 1) / speed)) + 1
+    src = np.minimum(np.arange(n_new) * speed, T - 1)
+    i0 = np.floor(src).astype(int)
+    i1 = np.minimum(i0 + 1, T - 1)
+    w = (src - i0)
+
+    def lerp(a):
+        shape = (n_new,) + (1,) * (a.ndim - 1)
+        W = w.reshape(shape)
+        return (1.0 - W) * a[i0] + W * a[i1]
+
+    qpos = lerp(clip.qpos)
+    qn = np.linalg.norm(qpos[:, 3:7], axis=1, keepdims=True)
+    qpos[:, 3:7] /= np.maximum(qn, 1e-12)
+    return MocapClip(
+        motion_name=f"{clip.motion_name}@{speed:g}x",
+        dt=clip.dt, loop=clip.loop,
+        qpos=qpos, qvel=lerp(clip.qvel) * speed,
+        body_xpos=lerp(clip.body_xpos), geom_xpos=lerp(clip.geom_xpos))
+
+
 def load_clip(filepath: str, model, fix_singularity: bool = True) -> MocapClip:
     """Load + preprocess one clip against a PhysicsModel."""
     with open(filepath) as f:

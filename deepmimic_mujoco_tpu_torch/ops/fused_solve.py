@@ -197,6 +197,35 @@ def launch_plan(nv: int, n: int, K: int) -> LaunchPlan:
     return LaunchPlan(tr, tc, rpt, kc, lc, t, 1, t, cpt, rpt * cpt, smem)
 
 
+def check_fits(nv: int, K: int, L: int) -> None:
+    """Raise a ValueError that names the limit when no compiled plan
+    holds an engine's solve (nv dofs, K contact slots, L limit rows):
+    the card's path has no plain fallback. The CPU path (the plain
+    version) takes any size."""
+    try:
+        launch_plan(nv, 3 * K + L, K)
+    except ValueError as e:
+        k_max = max((k for k in range(K_MAX + 1)
+                     if _holds(nv, 3 * k + L, k)), default=None)
+        hint = (f"at most max_contacts={k_max} with nv={nv}, L={L}"
+                if k_max is not None else
+                f"no max_contacts fits nv={nv}, L={L}")
+        raise ValueError(
+            f"the fused-solve kernel on the card holds nv <= {NV_MAX}, "
+            f"3*K + L <= {N_MAX} constraint rows and K <= {K_MAX} contact "
+            f"slots, within the plans {PLANS}; this engine needs nv={nv}, "
+            f"K={K}, L={L} (3*K + L = {3 * K + L}): {hint}. The CPU path "
+            f"has no such limit. ({e})") from None
+
+
+def _holds(nv, n, K):
+    try:
+        launch_plan(nv, n, K)
+    except ValueError:
+        return False
+    return True
+
+
 def plan_cells(plan: LaunchPlan, nv: int, K: int, L: int):
     """(tid, row, col) for every entry of W a thread of the env holds
     (csrc/fused_solve.cu:col_of); pad slots are left out."""
@@ -342,7 +371,8 @@ def fused_solve(M, JT, qf, aref, imp, active, mu, lam0, *, K: int, L: int,
     """Batched fused solve from an explicit J^T (B, nv, n). CPU tensors
     take ``fused_solve_plain``; CUDA tensors launch the kernel (or
     raise). ``fused_solve.launches`` counts kernel launches of both
-    entries."""
+    entries, and ``fused_solve.launches_by_thread`` counts them by the
+    launching thread's ident."""
     B, nv, n = JT.shape
     if n != 3 * K + L:
         raise ValueError(f"n={n} rows, expected 3*K+L={3 * K + L}")
@@ -363,11 +393,19 @@ def fused_solve(M, JT, qf, aref, imp, active, mu, lam0, *, K: int, L: int,
     with torch.cuda.device(dev):
         out = _launch(_load(), plan, B, nv, K, L, iterations, pyramidal,
                       M.contiguous(), JT.contiguous(), None, vectors)
-    fused_solve.launches += 1
+    _count_launch()
     return out
 
 
 fused_solve.launches = 0
+fused_solve.launches_by_thread = {}
+
+
+def _count_launch():
+    fused_solve.launches += 1
+    by_thread = fused_solve.launches_by_thread
+    me = threading.get_ident()
+    by_thread[me] = by_thread.get(me, 0) + 1
 
 
 def build_jt(cd_lin, cd_ang, frame, rpos, w, sign_l, ld_idx):
@@ -448,7 +486,7 @@ def fused_solve_parts(M, cd_lin, cd_ang, frame, rpos, w, sign_l, qf, aref,
     with torch.cuda.device(dev):
         out = _launch(_load(), plan, B, nv, K, L, iterations, pyramidal,
                       M.contiguous(), None, parts, vectors)
-    fused_solve.launches += 1
+    _count_launch()
     return out
 
 

@@ -8,11 +8,11 @@ in a fixed group-major, sample-major order. The solver consumes the
 top-K deepest slots (all active contacts are kept whenever
 #active <= K).
 
-Ported kinds: plane-{sphere, capsule, box}, sphere-sphere,
+Kinds: plane-{sphere, capsule, box, mesh}, sphere-sphere,
 sphere-capsule, capsule-capsule, sphere-box (point-box), capsule-box
-(segment-box sampling) and box-box (corner sampling, 4 deepest) — every
-kind humanoid3d uses. Capsule entities of mesh proxies are resolved on
-the host, but the plane-mesh kind (Unitree G1 only) is not ported yet.
+(segment-box sampling) and box-box (corner sampling, 4 deepest). Mesh
+geoms collide with the floor through their hull vertices (the 4 lowest)
+and with everything else through capsule proxies resolved on the host.
 
 Vectors are tensors with a trailing axis of 3. Dot products, crosses
 and rotations are written out component by component in the same order
@@ -338,6 +338,20 @@ def _corners(size):
     return sg[None] * np.asarray(size)[:, None, :]
 
 
+def _hull_verts(m, gids):
+    """(P, Kv, 3) hull vertices of each mesh geom, padded to the largest
+    count with the mesh's own first vertex (the JAX package's layout: a
+    short mesh may offer the same vertex in several of its 4 slots)."""
+    vs = [np.asarray(m.meshes[int(m.geom_meshid[g])].verts)
+          for g in np.asarray(gids)]
+    kv = max(len(v) for v in vs)
+    out = np.zeros((len(vs), kv, 3))
+    for i, v in enumerate(vs):
+        out[i, :len(v)] = v
+        out[i, len(v):] = v[0]
+    return out
+
+
 def _build_plan(m, tables, device, dtype):
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device,
                                   dtype=dtype)
@@ -358,9 +372,6 @@ def _build_plan(m, tables, device, dtype):
     groups = []
     for grp in tables:
         kind = grp.kind
-        if kind == K_PLANE_MESH:
-            raise NotImplementedError(
-                "plane-mesh contacts (Unitree G1) are not ported yet")
         none = np.full(len(grp.g1), -1)
         p = dict(kind=kind, g1=i(grp.g1), g2=i(grp.g2))
         size1 = np.asarray(m.geom_size[np.asarray(grp.g1)])
@@ -381,7 +392,9 @@ def _build_plan(m, tables, device, dtype):
         if kind in (K_SPHERE_BOX, K_CAPSULE_BOX, K_BOX_BOX):
             p["size2"] = f(size2)
         if kind == K_PLANE_BOX:
-            p["corners2"] = f(_corners(size2))
+            p["locs2"] = f(_corners(size2))
+        if kind == K_PLANE_MESH:
+            p["locs2"] = f(_hull_verts(m, grp.g2))
         if kind == K_BOX_BOX:
             p["size1"] = f(size1)
             p["corners1"] = f(_corners(size1))
@@ -446,7 +459,8 @@ def _narrow_groups(m, tables: List[PairGroup], kin: Kin):
     for p in plan["groups"]:
         kind, g1, g2 = p["kind"], p["g1"], p["g2"]
 
-        if kind in (K_PLANE_SPHERE, K_PLANE_CAPSULE, K_PLANE_BOX):
+        if kind in (K_PLANE_SPHERE, K_PLANE_CAPSULE, K_PLANE_BOX,
+                    K_PLANE_MESH):
             n, pp = GR[:, g1, :, 2], GP[:, g1]
             if kind == K_PLANE_SPHERE:
                 c, r = GP[:, g2], p["r2"]
@@ -463,10 +477,12 @@ def _narrow_groups(m, tables: List[PairGroup], kin: Kin):
                             n.repeat(1, 2, 1)))
             else:
                 fp, fR = GP[:, g2], GR[:, g2]
-                # h = (c - pp)·n + v·(R^T n): pair-level base + corners
+                # box corners or hull vertices against the plane:
+                # h = (c - pp)·n + v·(R^T n), pair-level base + local
+                # points; the 4 lowest, ties to the lowest index
                 base = _dot(fp - pp, n)
                 w = _rot_t(fR, n)
-                lv = p["corners2"]                           # (P, 8, 3)
+                lv = p["locs2"]                              # (P, Kv, 3)
                 hs = base[..., None] + _dot(lv, w[:, :, None, :])
                 pts = fp[:, :, None, :] + _rot(fR[:, :, None], lv)
                 sel = _smallest(hs, 4)

@@ -94,6 +94,15 @@ def solve_constraints(m: PhysicsModel, com: Com, M_hat: torch.Tensor,
     dt = m.opt.timestep
     dev, dtype = qfrc_smooth.device, qfrc_smooth.dtype
     K = contacts.dist.shape[1]
+    if not iterations:
+        # constraints disabled (smooth-parity tests): the JAX package
+        # returns qacc_smooth with zero constraint force and zero lam
+        Lc, _ = torch.linalg.cholesky_ex(M_hat)
+        qacc = torch.cholesky_solve(qfrc_smooth[..., None], Lc)[..., 0]
+        return SolveResult(
+            qacc=qacc, qfrc_constraint=torch.zeros_like(qfrc_smooth),
+            lam=qfrc_smooth.new_zeros(qfrc_smooth.shape[0],
+                                      3 * K + len(limit_table[0])))
 
     # ---- contact rows (segment-major: normals | t1 | t2 | limits) -----
     # the contact velocity contracts through u = sum_n w v cd (Jp v =

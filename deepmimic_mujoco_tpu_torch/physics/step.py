@@ -20,6 +20,7 @@ import torch
 from deepmimic_mujoco_tpu_torch.models.physics_model import (
     FREE, HINGE, RK4, PhysicsModel,
 )
+from deepmimic_mujoco_tpu_torch.ops import fused_solve
 from deepmimic_mujoco_tpu_torch.physics import dynamics
 from deepmimic_mujoco_tpu_torch.physics.collision import (
     Contacts, build_pair_tables, calibrate_proxy_gaps, collide, total_slots,
@@ -98,6 +99,9 @@ class Engine:
         self.k_slots = min(self.max_contacts, self.n_pair_slots)
         self.n_warm_rows = (3 * self.k_slots + len(self.limit_table[0])
                             + self.k_slots)
+        if self.device.type == "cuda":
+            fused_solve.check_fits(model.nv, self.k_slots,
+                                   len(self.limit_table[0]))
         # Warm-starting from the previous step's forces shifts the
         # 50-iteration partial solution; the committed gate policies
         # are trained against it.
@@ -111,21 +115,22 @@ class Engine:
         contacts = collide(self.m, self.tables, kin, self.max_contacts)
         return kin, com, contacts
 
-    def forward(self, qpos, qvel, ctrl, lam0=None) -> EngineData:
-        """Full dynamics: qacc under current state + control, with the
-        Euler integrator's implicit joint damping.
+    def forward(self, qpos, qvel, ctrl, h_implicit: float = 0.0,
+                lam0=None) -> EngineData:
+        """Full dynamics: qacc under current state + control.
 
-        The mass matrix is augmented with ``dt*diag(damping + c_fric)``;
-        the damping force itself is applied explicitly. Joint
-        frictionloss is a linearized implicit Coulomb force: its
-        magnitude is exactly +-floss for |v| > 5e-3 and linear near
-        zero, entering the velocity update implicitly (unconditionally
-        stable even on near-massless dofs). ``lam0`` (B, n_warm_rows)
-        warm-starts the constraint solve in PAIR-SLOT space; it is
-        gathered onto this step's compacted slots.
+        ``h_implicit > 0`` is the Euler integrator's implicit joint
+        damping: the mass matrix is augmented with ``h*diag(damping +
+        c_fric)`` and joint frictionloss is a linearized implicit
+        Coulomb force (exactly +-floss for |v| > 5e-3, linear near zero,
+        unconditionally stable even on near-massless dofs). The default
+        ``h_implicit = 0`` is the explicit path: M̂ = M and frictionloss
+        ``-floss*tanh(qvel/0.05)``. The damping force itself is always
+        applied explicitly. ``lam0`` (B, n_warm_rows) warm-starts the
+        constraint solve in PAIR-SLOT space; it is gathered onto this
+        step's compacted slots.
         """
         m = self.m
-        h = self.dt
         kin, com, contacts = self.position_stage(qpos)
         if lam0 is not None:
             lam0 = self._gather_warm(contacts.slot_idx, lam0)
@@ -137,15 +142,19 @@ class Engine:
         damping = const(m, "dof_damping", lambda: m.dof_damping, dev, dt)
         floss = const(m, "dof_frictionloss", lambda: m.dof_frictionloss,
                       dev, dt)
-        c_fric = floss / torch.clamp(torch.abs(qvel), min=5e-3)
-        fric_force = -c_fric * qvel
+        if h_implicit:
+            c_fric = floss / torch.clamp(torch.abs(qvel), min=5e-3)
+            fric_force = -c_fric * qvel
+        else:
+            fric_force = -floss * torch.tanh(qvel / 0.05)
 
         passive = (dynamics.passive_force(m, qpos, qvel)
                    - damping * qvel + fric_force)
         act = dynamics.actuator_force(m, ctrl)
         qfrc_smooth = passive + act - bias
 
-        M_hat = M + h * torch.diag_embed(damping + c_fric)
+        M_hat = (M + h_implicit * torch.diag_embed(damping + c_fric)
+                 if h_implicit else M)
 
         res = solve_constraints(
             m, com, M_hat, qfrc_smooth, qpos, qvel, contacts,
@@ -202,7 +211,7 @@ class Engine:
         h = self.dt
         if not self.warm_start_lam:
             lam0 = None
-        d = self.forward(qpos, qvel, ctrl, lam0=lam0)
+        d = self.forward(qpos, qvel, ctrl, h_implicit=h, lam0=lam0)
         qvel_new = qvel + d.qacc * h
         qpos_new = self.integrate_pos(qpos, qvel_new, h)
         return qpos_new, qvel_new, d

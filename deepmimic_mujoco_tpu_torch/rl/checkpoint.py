@@ -1,0 +1,110 @@
+"""Checkpoints: the full train state, params only, and the actor npz.
+
+``save``/``restore`` write and read everything a PPO run needs to resume
+exactly: the params, the Adam state (with its update count), the env
+states, the generators' states, ``global_step`` and ``lr_scale``, with
+``torch.save``. ``save_params``/``restore_params`` keep a params-only
+state dict (deployment, eval, warm starts). The JAX package's orbax
+checkpoints are not read here: committed ones reach the port as actor
+npz files (``rl/convert.py``).
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from deepmimic_mujoco_tpu_torch.rl.convert import actor_npz_arrays
+
+
+def _path(path: str) -> str:
+    path = os.path.abspath(os.path.expanduser(path))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    return path
+
+
+def save(path: str, ts) -> str:
+    """Write the train state ``ts`` (``ppo.TrainState``) to ``path``."""
+    path = _path(path)
+    torch.save({
+        "net": ts.net.state_dict(), "opt": ts.opt.state_dict(),
+        "env_states": dict(ts.env_states._asdict()),
+        "last_obs": ts.last_obs,
+        "gens": {k: g.get_state() for k, g in ts.gens.items()},
+        "global_step": ts.global_step, "ep_return": ts.ep_return,
+        "ep_length": ts.ep_length, "lr_scale": ts.lr_scale}, path)
+    return path
+
+
+def restore(path: str, template):
+    """Load the train state at ``path`` into ``template`` (a fresh
+    ``PPO.init`` state of the same configuration, whose net, optimizer
+    and generators receive it) and return it."""
+    data = torch.load(os.path.expanduser(path), map_location="cpu",
+                      weights_only=True)
+    dev = template.last_obs.device
+    template.net.load_state_dict(data["net"])
+    template.opt.load_state_dict(data["opt"])
+    template.env_states = type(template.env_states)(
+        **{k: v.to(dev) for k, v in data["env_states"].items()})
+    template.last_obs = data["last_obs"].to(dev)
+    for k, g in template.gens.items():
+        g.set_state(data["gens"][k])
+    template.global_step = int(data["global_step"])
+    template.ep_return = data["ep_return"].to(dev)
+    template.ep_length = data["ep_length"].to(dev)
+    template.lr_scale = float(data["lr_scale"])
+    return template
+
+
+def save_params(path: str, net) -> str:
+    """Params-only artifact (deployment / eval)."""
+    path = _path(path)
+    torch.save({k: v.detach().cpu() for k, v in net.state_dict().items()},
+               path)
+    return path
+
+
+def restore_params(path: str, template=None) -> dict:
+    """The state dict at ``path``; with a ``template`` state dict, on its
+    tensors' devices."""
+    sd = torch.load(os.path.expanduser(path), map_location="cpu",
+                    weights_only=True)
+    if template is not None:
+        sd = {k: v.to(template[k].device) for k, v in sd.items()}
+    return sd
+
+
+def save_actor_npz(path: str, net) -> str:
+    """The actor in the ``w0..bN`` + ``log_std`` npz format."""
+    path = _path(path)
+    np.savez(path, **actor_npz_arrays(net))
+    return path
+
+
+def adapt_params(params: dict, template: dict) -> dict:
+    """Adapt a state dict to a template with a WIDER observation input.
+
+    Cross-env warm starts (a DPEnv checkpoint into a combined-env
+    trainer) differ only in the first layer's input width: the combined
+    env appends player-action dims to the END of the obs vector, so the
+    extra input columns of the first layers' weights (torch's (out, in)
+    layout) are zero: the new obs dims contribute nothing and the
+    pretrained mapping is kept exactly. Any other mismatch is an error.
+    """
+    if set(params) != set(template):
+        raise ValueError("params tree structure mismatch")
+    out = {}
+    for k, p in params.items():
+        t = template[k]
+        if p.shape == t.shape:
+            out[k] = p
+        elif (p.dim() == 2 and t.dim() == 2 and p.shape[0] == t.shape[0]
+              and t.shape[1] > p.shape[1]):
+            out[k] = torch.cat([p, p.new_zeros(p.shape[0],
+                                               t.shape[1] - p.shape[1])], 1)
+        else:
+            raise ValueError(f"cannot adapt param {k} of shape "
+                             f"{tuple(p.shape)} to {tuple(t.shape)}")
+    return out

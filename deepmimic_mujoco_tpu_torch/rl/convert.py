@@ -1,10 +1,11 @@
 """Weights carried across from the JAX package.
 
-``params_from_flax`` maps a flax ``ActorCritic`` parameter tree (as
-numpy, e.g. from the JAX package's ``rl/checkpoint.py:restore_params``)
-onto the port's ``ActorCritic.state_dict()``. Flax ``Dense_i`` kernels
-are stored (in, out); the actor is the first ``len(net_arch)+1`` Dense
-layers, then the critic's, then ``log_std``.
+``params_from_flax`` maps a flax ``ActorCritic`` (or
+``PDTargetActorCritic``) parameter tree (as numpy, e.g. from the JAX
+package's ``rl/checkpoint.py:restore_params``) onto the port's
+``state_dict()``. Flax ``Dense_i`` kernels are stored (in, out); the
+actor is the first ``len(net_arch)+1`` Dense layers, then the critic's,
+then ``log_std``.
 
 ``actor_from_npz`` reads the ``w0..bN`` actor format of the
 ``runs/*_extracted.npz`` files (kernels stored (in, out)), with an

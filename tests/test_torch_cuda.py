@@ -12,6 +12,8 @@ import torch
 
 from deepmimic_mujoco_tpu_torch.envs import DPEnv
 from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
+from deepmimic_mujoco_tpu_torch.physics import solver
+from deepmimic_mujoco_tpu_torch.rl.ppo import PPO, PPOConfig
 from deepmimic_mujoco_tpu_torch.utils.device import resolve_device
 
 TOL_KERNEL = 2e-4   # max|d|/scale, tests/test_fused_solve.py
@@ -120,6 +122,41 @@ def test_phase_cycles_on_card(cuda_device):
 
 
 @pytest.mark.gpu
+def test_launches_counted_by_thread(cuda_device):
+    """Each launch adds one to the total and one to the launching
+    thread's count, so a worker's launches do not show in another
+    thread's."""
+    import threading
+
+    nv, K, L = H3D
+    M, _, *vectors = (torch.tensor(a, device=cuda_device)
+                      for a in _mk(9, 8, nv, K, L))
+    parts, ld_idx = _mk_parts(10, 8, nv, K, L)
+    parts = [torch.tensor(a, device=cuda_device) for a in parts]
+    call = lambda: fs.fused_solve_parts(M, *parts, *vectors, K=K, L=L,
+                                        ld_idx=ld_idx, iterations=50)
+    by_thread = fs.fused_solve.launches_by_thread
+    counted = lambda: by_thread.get(threading.get_ident(), 0)
+    in_worker = []
+
+    def work():
+        before = counted()
+        for _ in range(3):
+            call()
+        in_worker.append(counted() - before)
+
+    total, mine = fs.fused_solve.launches, counted()
+    worker = threading.Thread(target=work)
+    worker.start()
+    worker.join()
+    call()
+    torch.cuda.synchronize()
+    assert fs.fused_solve.launches == total + 4
+    assert counted() == mine + 1
+    assert in_worker == [3]
+
+
+@pytest.mark.gpu
 def test_env_step_on_card_matches_cpu(cuda_device):
     """One DPEnv step on the card launches the kernel once and agrees
     with the CPU path on the same states and actions."""
@@ -139,6 +176,112 @@ def test_env_step_on_card_matches_cpu(cuda_device):
                  (oc.reward, og.reward)):
         assert _err(a, b) < TOL_STEP
     assert torch.equal(oc.done, og.done.cpu())
+
+
+@pytest.mark.gpu
+def test_g1_parts_kernel_matches_plain_on_main_path_inputs(cuda_device):
+    """The G1 plan (4 x 16 threads) on the inputs a G1 walk step gives
+    the solve, warm-started from the step before."""
+    env = DPEnv(motion="walk", robot="unitree_g1", device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    state, _ = env.reset(256, generator=g)
+    act = torch.zeros(256, env.action_size, device=cuda_device)
+    state, _ = env.step(state, act)
+    captured = []
+    entry = solver.fused_solve_parts
+
+    def record(*args, **kw):
+        captured.append(([a.clone() for a in args], dict(kw)))
+        return entry(*args, **kw)
+
+    solver.fused_solve_parts = record
+    try:
+        env.step(state, act)
+    finally:
+        solver.fused_solve_parts = entry
+    args, kw = captured[0]
+    assert (kw["K"], kw["L"]) == (24, 37)
+    assert fs.launch_plan(43, 109, 24)[:2] == (4, 16)
+    before = fs.fused_solve.launches
+    got = fs.fused_solve_parts(*args, **kw)
+    torch.cuda.synchronize()
+    assert fs.fused_solve.launches == before + 1
+    plain_kw = {k: v for k, v in kw.items() if k != "ld_idx"}
+    want = fs.fused_solve_plain(args[0], fs.build_jt(*args[1:7],
+                                                     kw["ld_idx"]),
+                                *args[7:], **plain_kw)
+    errs = [_err(a, b) for a, b in zip(want, got)]
+    assert max(errs) < TOL_KERNEL, errs
+
+
+@pytest.mark.gpu
+def test_engine_on_card_refuses_what_no_plan_holds(cuda_device):
+    with pytest.raises(ValueError, match="max_contacts=25"):
+        DPEnv(motion="walk", robot="unitree_g1", max_contacts=26,
+              device=cuda_device)
+
+
+class _ForcedFramesEnv(DPEnv):
+    """RSI reset frames drawn on the CPU from the env's own generator, so
+    the card and the CPU path reset to the same frames."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self._cpu_gen = torch.Generator().manual_seed(11)
+
+    def _draw_frames(self, n, generator):
+        return torch.randint(0, self.mocap_data_len, (n,),
+                             generator=self._cpu_gen).to(self.device)
+
+
+class _ForcedPPO(PPO):
+    """Action noise and permutations drawn on the CPU from fixed seeds."""
+
+    def init(self, seed=0):
+        self._g = torch.Generator().manual_seed(seed + 100)
+        return super().init(seed)
+
+    def draw_noise(self, ts, mean):
+        return torch.randn(mean.shape, generator=self._g).to(mean.device)
+
+    def draw_perm(self, ts, n):
+        return torch.randperm(n, generator=self._g).to(self.device)
+
+
+@pytest.mark.gpu
+def test_ppo_iteration_on_card_matches_cpu(cuda_device):
+    """One PPO iteration on G1 walk envs on the card (the kernel on the
+    path) against the CPU path, with the same draws."""
+    cfg = PPOConfig(n_envs=8, horizon=4, minibatch_size=16, epochs=2,
+                    net_arch=(16,), total_timesteps=32)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        env = _ForcedFramesEnv(motion="walk", robot="unitree_g1", device=dev)
+        ppo = _ForcedPPO(env, cfg)
+        ts = ppo.init(seed=2)
+        before = fs.fused_solve.launches
+        ts, st = ppo.train_iter(ts)
+        out[dev.type] = (ts, st, fs.fused_solve.launches - before)
+    (tg, sg, ng), (tc, sc, nc) = out["cuda"], out["cpu"]
+    assert (ng, nc) == (cfg.horizon, 0)
+    for k in ("pg_loss", "v_loss", "entropy", "approx_kl", "mean_reward"):
+        a, b = float(getattr(sc, k)), float(getattr(sg, k))
+        assert abs(a - b) <= TOL_STEP * max(abs(a), 1e-3), (k, a, b)
+    for (k, a), b in zip(tc.net.state_dict().items(),
+                         tg.net.state_dict().values()):
+        assert _err(a, b) < TOL_STEP, k
+
+
+def test_check_fits_names_the_limit():
+    """The error an engine on the card raises when no compiled plan holds
+    its solve names the largest max_contacts that fits (runs anywhere)."""
+    fs.check_fits(34, 16, 28)
+    fs.check_fits(43, 24, 37)
+    fs.check_fits(43, 25, 37)
+    with pytest.raises(ValueError, match="at most max_contacts=25"):
+        fs.check_fits(43, 26, 37)
+    with pytest.raises(ValueError, match="no max_contacts fits"):
+        fs.check_fits(60, 4, 10)
 
 
 def test_wrapper_refuses_other_devices():

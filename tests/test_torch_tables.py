@@ -189,7 +189,7 @@ def test_actor_critic_forward_matches_flax():
     np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), atol=1e-5)
 
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "mujoco",
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mujoco",
               "deepmimic_mujoco_tpu")
 
 
@@ -204,6 +204,11 @@ def test_port_imports_no_jax_side_module():
     import jax first) of every port source and chip_smoke.py."""
     srcs = [p for p in _port_files() if p.endswith(".py")]
     srcs.append(os.path.join(_REPO, "chip_smoke.py"))
+    scanned = {os.path.relpath(p, _PORT) for p in srcs}
+    for mod in ("physics/collision.py", "mocap/loader.py", "rl/networks.py",
+                "rl/ppo.py", "rl/checkpoint.py", "rl/eval.py",
+                "rl/train.py", "rl/convert.py"):
+        assert mod in scanned, mod
     bad = []
     for path in srcs:
         with open(path) as f:
