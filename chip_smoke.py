@@ -25,18 +25,13 @@ Phases, each printed with its seconds:
      build_jt must not run (J^T is built inside the kernel) and every
      state stays finite. Then four more steps under torch.profiler: the
      device-busy share and the device kernels that take the most time.
-  4. gate replay: the committed humanoid3d walk gate actor from frame 20
-     with mean actions for up to 1000 steps; reward > 90, no overflow
-  5. G1 main path: 2048 Unitree G1 walk envs under a seeded ActorCritic
+  4. G1 main path: 2048 Unitree G1 walk envs under a seeded ActorCritic
      that samples actions. The kernel (G1 plan) is held against its
      plain version on the first step's inputs, as in phase 3, and both
      are timed; then
      64 step_auto_reset steps with the counts zeroed: 64 launches, no
      build_jt; env-steps/s and the largest contact overflow
-  6. G1 gate replays: the three committed G1 gate actors (walk and run
-     from frame 20, getup from frame 0) with mean actions, each above
-     its gate (90, 90, 60) with no overflow, beside the JAX replay
-  7. PPO training: the ported CLI's main() in-process on G1 walk at its
+  5. PPO training: the ported CLI's main() in-process on G1 walk at its
      default widths for two iterations (--total 262144); per iteration
      the rollout and update times, env-steps/s, losses, KL and overflow;
      losses finite, params moved, 64 launches per iteration in the
@@ -48,6 +43,40 @@ Phases, each printed with its seconds:
      within 1e-5 relative). Last, one update minibatch step under
      torch.profiler, and the optimizer step beside
      torch.optim.Adam(fused=True)
+  6. combined main path: 2048 combined walk/run/getup envs (Unitree G1)
+     under a seeded ActorCritic that samples actions, with the handoff
+     buffer armed (HANDOFF_BUFFER_FRAC 0.25, FACEDOWN_RSI_FRAC 0.1,
+     RSI_RANDOM_PA) and updated each step as the PPO rollout does. The
+     kernel (G1 plan) is held against its plain version on the first
+     step's inputs and timed, as in phase 3; then 64 step_auto_reset
+     steps with the counts zeroed: 64 launches, env-steps/s, overflow,
+     the count of each motion transition and handoff_count
+  7. RK4 main path: 2048 humanoid3d walk envs under RK4 for 16 steps:
+     the kernel held against its plain version on the first stage's
+     inputs (lam0 = 0) and timed, then 4 launches per step
+  8. PPO on the combined env: the CLI's main() with its default --env,
+     --handoff-buffer 0.25 and --facedown-rsi 0.1, at its default widths
+     for two iterations: as phase 5 (without the round trip), and the
+     buffer holds rows after the iterations
+  9. gate replays, each in a process of its own (``--replay NAME``),
+     all started together (each is host-bound), with mean actions:
+     - the humanoid3d walk gate actor from frame 20 and the three G1
+       gate actors (walk and run from frame 20, getup from frame 0), each
+       above its gate (90, 90, 90, 60) with no overflow, beside the JAX
+       replay
+     - the RK4 walk gate actor from frame 20 for 1000 steps: reward > 90,
+       no overflow, 4000 launches
+     - the combined actor from the reset the JAX package draws from
+       PRNGKey(0) (data/combined_gate_start.npz) and from 31 copies of
+       it with the start velocity moved by 1e-5 x N(0, 1), as one batch
+       of 32 for 2000 steps with no host sync per step; each episode
+       against the bar (reward > 100, length >= 1900, no overflow); the
+       median reward must exceed 100 and 8 episodes clear the bar; one
+       launch per step
+     - tools/play_combined.main with the combined actor, a 520-step
+       force-tracked warm start and a fall injected at step 520: the fall
+       -> to_getup -> getup path must run, and each physics step launches
+       the kernel once
 
 Then one JSON line per kernel table, and as the last line the result
 object. Exits non-zero, printing no result, when no CUDA device is
@@ -61,20 +90,53 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-JAX_GATE_REPLAY = 615.6  # JAX package replay of the same gate, CPU
 TOL_KERNEL = 2e-4        # max|d|/scale, tests/test_fused_solve.py
 TOL_STEP = 5e-3          # max|d|/scale, tests/test_fused_solve.py
 TOL_RESUME = 1e-5        # relative, resumed vs continued PPO losses
-# (actor file, motion, start frame, gate, JAX package replay):
-# tests/test_checkpoint_gates.py
 # the training CLI at its default widths, two iterations of G1 walk
 PPO_ARGV = ["chip smoke", "--env", "deep_mimic_mujoco", "--motion", "walk",
             "--robot", "unitree_g1", "--no-wandb", "--no-render",
             "--total", "262144"]
-G1_GATES = (("g1_walk_gate_actor.npz", "walk", 20, 90.0, 324.3),
-            ("g1_run_gate_actor.npz", "run", 20, 90.0, 123.79),
-            ("g1_getup_gate_actor.npz", "getup_facedown_slow_FSI", 0, 60.0,
-             69.4))
+# the combined gate (tests/test_checkpoint_gates.py:135): the actor,
+# its reward and length bars, the JAX package's replay of it
+COMBINED_GATE = ("combined_r5_best_actor.npz", 100.0, 1900, 154.2)
+COMBINED_STEPS = 2000        # the combined env's MAX_EP_LENGTH
+# Whether this policy falls within 2000 steps turns on rounding: the
+# JAX package's own replays of the same start part ways (its scan 154.2,
+# its vmapped replay 21.17 over 656 steps; tools/combined_gate_spread.py).
+# So the gate replays the start 32 times at once, 31 of them with the
+# start velocity moved by 1e-5 x N(0, 1), and asks that the median
+# clears 100 and at least 8 episodes clear the whole bar (the JAX
+# package: 23 of 32 clear reward and length).
+COMBINED_REPLAYS = 32
+COMBINED_NOISE = 1e-5
+COMBINED_MIN_PASS = 8
+# the RK4 walk gate (tests/test_checkpoint_gates.py:37-39)
+RK4_GATE = ("h3d_walk_rk4_gate_actor.npz", 20, 90.0, 655.2)
+# PPO on the CLI's default (combined) env with the handoff buffer armed
+PPO_COMBINED_ARGV = ["chip smoke", "--no-wandb", "--no-render",
+                     "--total", "262144", "--handoff-buffer", "0.25",
+                     "--facedown-rsi", "0.1"]
+# the warm start force-tracks the clip past any reset (the getup clip
+# runs 353 steps, then 151 of locomotion earn amnesty), so the fall at
+# step 520 always lands, and to_getup ends within its 180 steps
+PLAY_ARGV = ["--steps", "720", "--warmstart", "520",
+             "--inject-fall-every", "40"]
+# the gate replays, each in a process of its own: (actor file, motion,
+# robot, start frame, gate, JAX package replay), from
+# tests/test_checkpoint_gates.py
+GATES = {
+    "h3d_walk": ("h3d_walk_gate_actor.npz", "walk", "humanoid3d", 20, 90.0,
+                 615.6),
+    "g1_walk": ("g1_walk_gate_actor.npz", "walk", "unitree_g1", 20, 90.0,
+                324.3),
+    "g1_run": ("g1_run_gate_actor.npz", "run", "unitree_g1", 20, 90.0,
+               123.79),
+    "g1_getup": ("g1_getup_gate_actor.npz", "getup_facedown_slow_FSI",
+                 "unitree_g1", 0, 60.0, 69.4),
+}
+REPLAYS = (*GATES, "combined", "rk4", "play_combined")
+REPLAY_TIMEOUT = 900
 
 
 def check(cond, msg):
@@ -233,15 +295,20 @@ def kernel_on_main_path(label, card, args, kw):
                 bound_by=b_by)
 
 
-def rollout_counted(env, net, state, action, n_steps, g_rsi, g_act):
+def rollout_counted(env, net, state, action, n_steps, g_rsi, g_act,
+                    step=None, per_step=1):
     """n_steps of step_auto_reset under the sampled policy with the
-    kernel's count zeroed just before; build_jt must not run. Returns
-    (state, action, launches, wall seconds, resets, max overflow)."""
+    kernel's count zeroed just before; build_jt must not run, and the
+    kernel must launch ``per_step`` times a step. ``step(state, action)``
+    replaces env.step_auto_reset(state, action, g_rsi). Returns (state,
+    action, launches, wall seconds, resets, max overflow)."""
     import torch
 
     from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
     from deepmimic_mujoco_tpu_torch.rl import networks
 
+    if step is None:
+        step = lambda s, a: env.step_auto_reset(s, a, g_rsi)
     dev = state.qpos.device
     torch.cuda.synchronize()
     jt_builds = []
@@ -254,7 +321,7 @@ def rollout_counted(env, net, state, action, n_steps, g_rsi, g_act):
         n_done = torch.zeros((), dtype=torch.int64, device=dev)
         ov = torch.zeros((), dtype=torch.int64, device=dev)
         for _ in range(n_steps):
-            state, out = env.step_auto_reset(state, action, g_rsi)
+            state, out = step(state, action)
             finite &= (torch.isfinite(state.qpos).all()
                        & torch.isfinite(state.qvel).all()
                        & torch.isfinite(out.obs).all())
@@ -270,35 +337,198 @@ def rollout_counted(env, net, state, action, n_steps, g_rsi, g_act):
     print(f"launches in {n_steps} steps: {launches}; build_jt calls: "
           f"{len(jt_builds)}")
     check(not jt_builds, "build_jt ran on the card's main path")
-    check(launches == n_steps,
+    check(launches == per_step * n_steps,
           f"fused_solve launched {launches} times in {n_steps} steps")
     check(bool(finite), "non-finite state on the main path")
     return state, action, launches, wall, int(n_done), int(ov)
 
 
-def replay(env, actor_file, idx_init, max_steps=1000):
-    """A committed gate actor's deterministic episode, counted while it
-    is alive (tests/test_checkpoint_gates.py:_episode_reward). Returns
-    (reward, max overflow, episode length)."""
+def replay_masked(env, actor, state, obs, max_steps):
+    """Deterministic episodes of ``max_steps`` steps, one per env of the
+    batch, with no host sync per step: each env's reward and largest
+    contact overflow while it is alive (the done step included), as the
+    gate tests' scans count them. Returns numpy arrays (reward, max
+    overflow, episode length), one entry per env."""
     import torch
 
-    from deepmimic_mujoco_tpu_torch.rl.convert import actor_from_npz
-
+    n, dev = obs.shape[0], obs.device
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    total = torch.zeros(n, device=dev)
+    length = torch.zeros(n, dtype=torch.int64, device=dev)
+    ov = torch.zeros(n, dtype=torch.int64, device=dev)
     with torch.no_grad():
-        actor = actor_from_npz(os.path.join(
-            REPO, "deepmimic_mujoco_tpu_torch", "data", actor_file),
-            device=env.device)
-        state, obs = env.reset(1, idx_init=idx_init)
-        total, ov, ep_len = 0.0, 0, 0
-        for ep_len in range(1, max_steps + 1):
+        for _ in range(max_steps):
             mean, _, _ = actor(obs)
             state, out = env.step(state, mean)
-            total += float(out.reward[0])   # the done step counts
-            ov = max(ov, int(out.contact_overflow[0]))
+            total += out.reward * alive
+            length += alive
+            ov = torch.maximum(ov, out.contact_overflow * alive)
+            alive &= ~out.done
             obs = out.obs
-            if bool(out.done[0]):
-                break
-    return total, ov, ep_len
+    return total.cpu().numpy(), ov.cpu().numpy(), length.cpu().numpy()
+
+
+def perturbed_qvel(qvel0, n, noise):
+    """(n, nv) start velocities: row 0 unchanged, the others moved by
+    ``noise`` times a RandomState(0) standard normal, in float32 (the
+    recipe of tools/combined_gate_spread.py)."""
+    import numpy as np
+
+    qvel0 = np.asarray(qvel0, np.float32)
+    d = (np.random.RandomState(0).randn(n - 1, qvel0.shape[0])
+         * noise).astype(np.float32)
+    return np.concatenate([qvel0[None], qvel0[None] + d])
+
+
+def combined_rollout(env, net, state, action, n_steps, g_rsi, g_act):
+    """The combined main path: step_auto_reset with the handoff buffer
+    armed and updated each step as the PPO rollout updates it, the
+    motion transitions counted on the card. Returns rollout_counted's
+    tuple, the buffer and the (4, 4) transition counts."""
+    import torch
+
+    dev = state.qpos.device
+    buf = env.make_handoff_buffer()
+    trans = torch.zeros(16, dtype=torch.int64, device=dev)
+
+    def step(s, a):
+        nonlocal buf, trans
+        prev, pa = s.motion_id, s.player_action
+        s, out = env.step_auto_reset(s, a, g_rsi, handoff_buf=buf)
+        buf = env.update_handoff_buffer(
+            buf, env.handoff_capture_mask(prev, out), s.qpos, s.qvel, pa,
+            out.motion_id)
+        trans += torch.bincount(prev * 4 + out.motion_id, minlength=16)
+        return s, out
+
+    res = rollout_counted(env, net, state, action, n_steps, g_rsi, g_act,
+                          step=step)
+    return res, buf, trans.view(4, 4).cpu()
+
+
+def replay_job(name):
+    """One gate replay, run in a process of its own (``chip_smoke.py
+    --replay NAME``): its lines, then a last line ``REPLAY_RESULT`` with
+    the numbers the parent checks. Each replay is host-bound (one env,
+    or one small batch, ~2000-2600 kernel launches a step), so the
+    parent runs them all at once."""
+    import numpy as np
+    import torch
+
+    from deepmimic_mujoco_tpu_torch.envs import DPCombinedEnv, DPEnv
+    from deepmimic_mujoco_tpu_torch.models.physics_model import RK4
+    from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
+    from deepmimic_mujoco_tpu_torch.rl.convert import actor_from_npz
+    from deepmimic_mujoco_tpu_torch.utils.device import fp32_physics
+
+    torch.set_num_threads(1)
+    fp32_physics()
+    dev = torch.device("cuda")
+    data = os.path.join(REPO, "deepmimic_mujoco_tpu_torch", "data")
+    fs.fused_solve.launches = 0
+    if name in GATES or name == "rk4":
+        if name == "rk4":
+            actor_file, idx0, _, _ = RK4_GATE
+            env = DPEnv(motion="walk", robot="humanoid3d", integrator=RK4,
+                        device=dev)
+        else:
+            actor_file, motion, robot, idx0, _, _ = GATES[name]
+            env = DPEnv(motion=motion, robot=robot, device=dev)
+        state, obs = env.reset(1, idx_init=idx0)
+        actor = actor_from_npz(os.path.join(data, actor_file), device=dev)
+        rews, ovs, lens = replay_masked(env, actor, state, obs, 1000)
+        res = dict(reward=float(rews[0]), overflow=int(ovs[0]),
+                   length=int(lens[0]))
+    elif name == "combined":
+        env = DPCombinedEnv(device=dev)
+        start = np.load(os.path.join(data, "combined_gate_start.npz"))
+        n = COMBINED_REPLAYS
+        full = lambda k: np.full(n, start[k])
+        state, obs = env.reset_to(
+            np.tile(start["qpos"][None], (n, 1)),
+            perturbed_qvel(start["qvel"], n, COMBINED_NOISE),
+            full("motion_id"), full("n_steps"), full("player_action"))
+        actor = actor_from_npz(os.path.join(data, COMBINED_GATE[0]),
+                               device=dev)
+        rews, ovs, lens = replay_masked(env, actor, state, obs,
+                                        COMBINED_STEPS)
+        res = dict(rewards=rews.tolist(), overflows=ovs.tolist(),
+                   lengths=lens.tolist())
+    elif name == "play_combined":
+        res = play_combined_run()
+    else:
+        raise ValueError(f"no replay named {name}")
+    res["launches"] = fs.fused_solve.launches
+    print("REPLAY_RESULT " + json.dumps(res), flush=True)
+
+
+def play_combined_run(device="cuda"):
+    """tools/play_combined.main with the combined gate actor and falls
+    injected; returns its reward and cycles, the steps it ran, the
+    physics steps among them and whether the fall -> to_getup -> getup
+    path ran."""
+    import contextlib
+    import io
+
+    from deepmimic_mujoco_tpu_torch.tools import play_combined
+
+    argv = ["--checkpoint", os.path.join(
+        REPO, "deepmimic_mujoco_tpu_torch", "data", COMBINED_GATE[0]),
+        *PLAY_ARGV, "--device", device]
+    print("python -m deepmimic_mujoco_tpu_torch.tools.play_combined "
+          + " ".join(os.path.relpath(a, REPO) if os.path.isabs(a) else a
+                     for a in argv))
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        ep_rew, cycles = play_combined.main(argv)
+    text = log.getvalue()
+    for line in text.splitlines():
+        print("  " + line)
+    m = re.search(r"done at (\d+)", text)
+    steps = int(m.group(1)) + 1 if m else int(PLAY_ARGV[1])
+    n_inject = text.count("injecting fall")
+    forced = min(int(PLAY_ARGV[3]), steps) + n_inject
+    path_ran = (n_inject >= 1 and "changing to motion: to_getup" in text
+                and "changing to motion: getup"
+                in text.split("injecting fall")[1])
+    return dict(reward=ep_rew, cycles=cycles, steps=steps,
+                injected=n_inject, physics_steps=steps - forced,
+                path_ran=bool(path_ran))
+
+
+def run_replays(card, names, timeout):
+    """Every named replay in a process of its own, all started together;
+    prints each one's lines in order and returns {name: result}. Every
+    process is stopped before this returns."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = {}
+    try:
+        for name in names:
+            procs[name] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--replay",
+                 name], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, env=env)
+        deadline = time.monotonic() + timeout
+        results = {}
+        for name, proc in procs.items():
+            out, _ = proc.communicate(
+                timeout=max(deadline - time.monotonic(), 1))
+            lines = out.splitlines()
+            print(f"-- replay {name} on {card} (exit {proc.returncode}):")
+            for line in lines:
+                if not line.startswith("REPLAY_RESULT "):
+                    print("  " + line)
+            res = [json.loads(line.split(" ", 1)[1]) for line in lines
+                   if line.startswith("REPLAY_RESULT ")]
+            check(proc.returncode == 0 and res,
+                  f"replay {name} failed (exit {proc.returncode})")
+            results[name] = res[0]
+        return results
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def update_step_profile(ppo, ts, card):
@@ -382,10 +612,14 @@ def update_step_profile(ppo, ts, card):
     return mb_ms
 
 
-def ppo_training(card, dev, env):
-    """Phase 7. Returns the kernel launches of each iteration in the
-    training thread, read from the kernel's per-thread count (the CLI's
-    evaluator thread launches it too, and keeps its own count)."""
+def ppo_training(card, dev, argv, out_name, env=None):
+    """Phases 7 and 13: the CLI's main() on ``argv`` for two iterations.
+    With ``env``, then the checkpoint round trip and the update profile.
+    Returns the kernel launches of each iteration in the training thread,
+    read from the kernel's per-thread count (the CLI's evaluator thread
+    launches it too, and keeps its own count), the evaluator's launches
+    and the handoff buffer's row count after each iteration (None without
+    a buffer)."""
     import glob
     import math
     import threading
@@ -396,7 +630,7 @@ def ppo_training(card, dev, env):
     from deepmimic_mujoco_tpu_torch.rl import checkpoint, ppo as ppo_mod
     from deepmimic_mujoco_tpu_torch.rl.train import main as train_main
 
-    out_dir = os.path.join(REPO, "build", "ppo_smoke")
+    out_dir = os.path.join(REPO, "build", out_name)
     os.makedirs(out_dir, exist_ok=True)
     by_thread = fs.fused_solve.launches_by_thread
     me = threading.get_ident()
@@ -423,7 +657,7 @@ def ppo_training(card, dev, env):
     for n, fn in originals.items():
         setattr(ppo_mod.PPO, n, timed(n, fn))
     try:
-        argv = [*PPO_ARGV, "--out", out_dir]
+        argv = [*argv, "--out", out_dir]
         print("python -m deepmimic_mujoco_tpu_torch.rl.train "
               + " ".join(repr(a) if " " in a else a for a in argv))
         before = dict(by_thread)
@@ -458,8 +692,10 @@ def ppo_training(card, dev, env):
                   f"{r['v_loss']:.6f} entropy {r['entropy']:.4f} approx_kl "
                   f"{r['approx_kl']:.6f} clip_frac {r['clip_frac']:.4f} "
                   f"mean_reward {r['mean_reward']:.4f} "
-                  f"contact_overflow_max {r['contact_overflow_max']}; "
-                  f"kernel launches in the training thread "
+                  f"contact_overflow_max {r['contact_overflow_max']}"
+                  + (f" handoff_count {r['handoff_count']}"
+                     if "handoff_count" in r else "")
+                  + f"; kernel launches in the training thread "
                   f"{iter_launches[i]}")
             check(all(math.isfinite(r[k]) for k in (
                 "pg_loss", "v_loss", "entropy", "approx_kl")),
@@ -475,6 +711,9 @@ def ppo_training(card, dev, env):
         check(evals, "the evaluator finished no evaluation")
         check(eval_launches == eval_steps,
               f"{eval_launches} evaluator launches in {eval_steps} steps")
+        handoff = [r.get("handoff_count") for r in iters]
+        if env is None:
+            return iter_launches, eval_launches, handoff
         ppo = ppo_mod.PPO(env, cfg)
         init = ppo.make_net(torch.Generator().manual_seed(0)).state_dict()
         moved = max(float((v.to(dev) - ts.net.state_dict()[k]).abs().max())
@@ -507,7 +746,7 @@ def ppo_training(card, dev, env):
         for n, fn in originals.items():
             setattr(ppo_mod.PPO, n, fn)
     update_step_profile(ppo, ts, card)
-    return iter_launches, eval_launches
+    return iter_launches, eval_launches, handoff
 
 
 def main():
@@ -708,17 +947,9 @@ def main():
           f"(policy + sampling + step_auto_reset; {n_done} resets)")
     done(t0, "main path")
 
-    # ---- 4. gate replay -----------------------------------------------------
-    t0 = phase("gate replay")
-    total, ov, ep_len = replay(env, "h3d_walk_gate_actor.npz", 20)
-    print(f"gate replay on {card}: reward {total:.2f} over {ep_len} steps "
-          f"(JAX replay {JAX_GATE_REPLAY}), max contact overflow {ov}")
-    check(total > 90.0, f"gate reward {total:.2f} <= 90")
-    check(ov == 0, f"gate episode dropped {ov} active contacts")
     del env, cpu_env
-    done(t0, "gate replay")
 
-    # ---- 5. G1 main path ---------------------------------------------------
+    # ---- 4. G1 main path ---------------------------------------------------
     t0 = phase("G1 main path")
     with torch.no_grad():
         g1 = DPEnv(motion="walk", robot="unitree_g1", device=dev)
@@ -742,32 +973,155 @@ def main():
           f"max contact overflow {ov}")
     done(t0, "G1 main path")
 
-    # ---- 6. G1 gate replays ------------------------------------------------
-    t0 = phase("G1 gate replays")
-    for actor_file, motion, idx0, gate, jax_rew in G1_GATES:
-        env = g1 if motion == "walk" else DPEnv(
-            motion=motion, robot="unitree_g1", device=dev)
-        total, ov, ep_len = replay(env, actor_file, idx0)
-        print(f"G1 {motion} gate replay on {card}: reward {total:.2f} over "
-              f"{ep_len} steps from frame {idx0} (JAX replay {jax_rew}, "
-              f"gate {gate}), max contact overflow {ov}")
-        check(total > gate, f"G1 {motion} gate reward {total:.2f} <= {gate}")
-        check(ov == 0, f"G1 {motion} gate episode dropped {ov} contacts")
-    done(t0, "G1 gate replays")
-
-    # ---- 7. PPO training ---------------------------------------------------
+    # ---- 5. PPO training ---------------------------------------------------
     t0 = phase("PPO training")
-    ppo_launches, eval_launches = ppo_training(card, dev, g1)
+    ppo_launches, eval_launches, _ = ppo_training(card, dev, PPO_ARGV,
+                                                  "ppo_smoke", env=g1)
     done(t0, "PPO training")
+
+    # ---- 6. combined main path -------------------------------------------
+    t0 = phase("combined main path")
+    from deepmimic_mujoco_tpu_torch.envs import (
+        DPCombinedEnv, DPCombinedEnvConfig,
+    )
+    from deepmimic_mujoco_tpu_torch.envs.combined_env import MOTION_NAMES
+    from deepmimic_mujoco_tpu_torch.models.physics_model import RK4
+
+    del g1
+    with torch.no_grad():
+        comb = DPCombinedEnv(cfg=DPCombinedEnvConfig(
+            HANDOFF_BUFFER_FRAC=0.25, FACEDOWN_RSI_FRAC=0.1,
+            RSI_RANDOM_PA=True), device=dev)
+        net = networks.ActorCritic(
+            comb.obs_size, comb.action_size, device="cpu",
+            generator=torch.Generator().manual_seed(7)).to(dev)
+        g_rsi = torch.Generator(device=dev).manual_seed(8)
+        g_act = torch.Generator(device=dev).manual_seed(9)
+        state, obs = comb.reset(n_envs, generator=g_rsi)
+        mean, log_std, _ = net(obs)
+        action, _ = networks.sample_action(mean, log_std, g_act)
+        c_args, c_kw = capture_parts(comb, state, action)
+        check((c_kw["K"], c_kw["L"]) == (24, 37),
+              f"combined solve has K={c_kw['K']}, L={c_kw['L']}")
+        comb_k = kernel_on_main_path("combined", card, c_args, c_kw)
+        (state, action, comb_launches, wall, n_done, ov), buf, trans = \
+            combined_rollout(comb, net, state, action, n_steps, g_rsi, g_act)
+    handoff_count = int(buf.count)
+    print(f"combined main path on {card}: {n_envs} envs x {n_steps} steps "
+          f"in {wall:.3f} s = {n_envs * n_steps / wall:.1f} env-steps/s "
+          f"(policy + sampling + step_auto_reset + handoff buffer update; "
+          f"{n_done} resets), max contact overflow {ov}, handoff_count "
+          f"{handoff_count}")
+    print("  motion transitions (from -> to: count): " + ", ".join(
+        f"{MOTION_NAMES[i]}->{MOTION_NAMES[j]}: {int(trans[i, j])}"
+        for i in range(4) for j in range(4) if i != j and trans[i, j]))
+    check(int(trans.sum()) == n_envs * n_steps, "transition counts")
+    del comb
+    done(t0, "combined main path")
+
+    # ---- 7. RK4 main path --------------------------------------------------
+    t0 = phase("RK4 main path")
+    rk4_steps = 16
+    with torch.no_grad():
+        rk4 = DPEnv(motion="walk", robot="humanoid3d", integrator=RK4,
+                    device=dev)
+        net = networks.ActorCritic(
+            rk4.obs_size, rk4.action_size, device="cpu",
+            generator=torch.Generator().manual_seed(10)).to(dev)
+        g_rsi = torch.Generator(device=dev).manual_seed(11)
+        g_act = torch.Generator(device=dev).manual_seed(12)
+        state, obs = rk4.reset(n_envs, generator=g_rsi)
+        mean, log_std, _ = net(obs)
+        action, _ = networks.sample_action(mean, log_std, g_act)
+        r_args, r_kw = capture_parts(rk4, state, action)
+        check(bool((r_args[-1] == 0).all()), "an RK4 stage was warm-started")
+        rk4_k = kernel_on_main_path("RK4 h3d (stage 1, lam0 = 0)", card,
+                                    r_args, r_kw)
+        state, action, rk4_launches, wall, n_done, ov = rollout_counted(
+            rk4, net, state, action, rk4_steps, g_rsi, g_act, per_step=4)
+    print(f"RK4 main path on {card}: {n_envs} envs x {rk4_steps} steps in "
+          f"{wall:.3f} s = {n_envs * rk4_steps / wall:.1f} env-steps/s "
+          f"(4 forwards a step; {n_done} resets), max contact overflow {ov}")
+    done(t0, "RK4 main path")
+
+    del rk4
+
+    # ---- 8. PPO on the combined env ---------------------------------------
+    t0 = phase("PPO combined")
+    comb_ppo, comb_eval, comb_handoff = ppo_training(
+        card, dev, PPO_COMBINED_ARGV, "ppo_combined_smoke")
+    check(comb_handoff[-1] is not None and comb_handoff[-1] > 0,
+          f"handoff_count after the iterations: {comb_handoff}")
+    done(t0, "PPO combined")
+
+    # ---- 9. gate replays --------------------------------------------------
+    t0 = phase("gate replays")
+    import numpy as np
+
+    res = run_replays(card, REPLAYS, REPLAY_TIMEOUT)
+    for name, (_, motion, robot, idx0, gate, jax_rew) in GATES.items():
+        r = res[name]
+        print(f"{robot} {motion} gate replay on {card}: reward "
+              f"{r['reward']:.2f} over {r['length']} steps from frame {idx0} "
+              f"(JAX replay {jax_rew}, gate {gate}), max contact overflow "
+              f"{r['overflow']}")
+        check(r["reward"] > gate, f"{name} gate reward {r['reward']:.2f}")
+        check(r["overflow"] == 0, f"{name} gate dropped {r['overflow']} "
+              "active contacts")
+    r = res["rk4"]
+    actor_file, idx0, gate, jax_rew = RK4_GATE
+    print(f"RK4 humanoid3d walk gate replay on {card}: reward "
+          f"{r['reward']:.2f} over {r['length']} steps from frame {idx0} "
+          f"(JAX replay {jax_rew}, gate {gate}), max contact overflow "
+          f"{r['overflow']}; {r['launches']} kernel launches in 1000 steps")
+    check(r["reward"] > gate, f"RK4 gate reward {r['reward']:.2f} <= {gate}")
+    check(r["overflow"] == 0, f"RK4 gate dropped {r['overflow']} contacts")
+    check(r["launches"] == 4000, f"RK4 gate: {r['launches']} launches")
+    r = res["combined"]
+    rews, ovs, lens = (np.asarray(r[k]) for k in (
+        "rewards", "overflows", "lengths"))
+    _, min_rew, min_len, jax_rew = COMBINED_GATE
+    ok = (rews > min_rew) & (lens >= min_len) & (ovs == 0)
+    print(f"combined gate replay on {card}: the recorded reset: reward "
+          f"{rews[0]:.2f} over {lens[0]} steps, max contact overflow "
+          f"{ovs[0]} (JAX replay {jax_rew} by the gate test's scan; bar: "
+          f"reward > {min_rew}, length >= {min_len}, no overflow: "
+          f"{'cleared' if ok[0] else 'not cleared'})")
+    print(f"  {len(rews)} episodes from it, {len(rews) - 1} with the start "
+          f"velocity moved by {COMBINED_NOISE} x N(0, 1): {int(ok.sum())} "
+          f"clear the bar; median reward {np.median(rews):.2f} (min "
+          f"{rews.min():.2f}, max {rews.max():.2f}); reward and length "
+          f"without the overflow bar: "
+          f"{int(((rews > min_rew) & (lens >= min_len)).sum())}; zero "
+          f"overflow: {int((ovs == 0).sum())}; {r['launches']} kernel "
+          "launches")
+    print("  rewards: " + " ".join(f"{x:.1f}" for x in rews))
+    check(np.median(rews) > min_rew,
+          f"combined gate median reward {np.median(rews):.2f} <= {min_rew}")
+    check(int(ok.sum()) >= COMBINED_MIN_PASS,
+          f"{int(ok.sum())} of {len(rews)} combined gate episodes clear "
+          "the bar")
+    check(r["launches"] == COMBINED_STEPS,
+          f"combined gate: {r['launches']} launches")
+    r = res["play_combined"]
+    print(f"play_combined on {card}: reward {r['reward']:.2f} over "
+          f"{r['steps']} steps, {r['injected']} fall(s) injected, recovery "
+          f"cycles {r['cycles']}; {r['launches']} kernel launches for "
+          f"{r['physics_steps']} physics steps")
+    check(r["path_ran"], "the fall -> to_getup -> getup path did not run")
+    check(r["launches"] == r["physics_steps"],
+          f"play_combined: {r['launches']} launches for "
+          f"{r['physics_steps']} physics steps")
+    done(t0, "gate replays")
 
     kernels = [{
         "name": "fused_solve",
         "route": "cuda",
         "source": "deepmimic_mujoco_tpu_torch/ops/csrc/fused_solve.cu",
         "replaces": "deepmimic_mujoco_tpu/ops/fused_solve.py:67",
-        # this slice's main path: G1 walk, B 2048
-        "launches": g1_launches,
-        **g1_k,
+        # this slice's main path: the combined env (G1 plan), B 2048
+        "launches": comb_launches,
+        **comb_k,
         "library_ms": None,
         "regs": info["g1"]["regs"],
         "spills": spills,
@@ -781,6 +1135,22 @@ def main():
             "ppo_g1_walk": {"launches": sum(ppo_launches),
                             "launches_per_iteration": ppo_launches,
                             "evaluator_launches": eval_launches},
+            "combined_b2048": {"launches": comb_launches, **comb_k,
+                               "handoff_count": handoff_count},
+            "combined_gate": {"launches": res["combined"]["launches"],
+                              "episodes": len(rews),
+                              "cleared": int(ok.sum()),
+                              "median_reward": float(np.median(rews)),
+                              "recorded_reset_reward": float(rews[0])},
+            "play_combined": {"launches": res["play_combined"]["launches"],
+                              "cycles": res["play_combined"]["cycles"]},
+            "rk4_h3d_b2048": {"launches": rk4_launches,
+                              "launches_per_step": 4, **rk4_k},
+            "rk4_gate": {"launches": res["rk4"]["launches"]},
+            "ppo_combined": {"launches": sum(comb_ppo),
+                             "launches_per_iteration": comb_ppo,
+                             "evaluator_launches": comb_eval,
+                             "handoff_count": comb_handoff},
         },
     }]
     print(f"total: {time.perf_counter() - t_all:.2f} s")
@@ -793,4 +1163,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--replay":
+        sys.path.insert(0, REPO)
+        replay_job(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

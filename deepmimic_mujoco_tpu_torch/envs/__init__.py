@@ -4,3 +4,9 @@ from deepmimic_mujoco_tpu_torch.envs.config import (  # noqa: F401
 from deepmimic_mujoco_tpu_torch.envs.dp_env import (  # noqa: F401
     DONE_REASON_NAMES, DPEnv, DPEnvState, StepOut,
 )
+from deepmimic_mujoco_tpu_torch.envs.combined_env import (  # noqa: F401
+    DPCombinedEnv,
+)
+from deepmimic_mujoco_tpu_torch.envs.config import (  # noqa: F401
+    DPCombinedEnvConfig,
+)

@@ -1,6 +1,5 @@
 """Env configuration objects (reference: src/config.py:3-49,
-src/deepmimic_env.py:258-270). The combined env's config comes with the
-combined env, in a later slice of the port.
+src/deepmimic_env.py:258-270, src/combined_env.py:21-35).
 
 Path resolution goes through :mod:`deepmimic_mujoco_tpu_torch.models.assets`
 (env var ``DM_TPU_ASSET_ROOT``) instead of the reference's hardcoded
@@ -87,3 +86,36 @@ class DPEnvConfig:
     @property
     def __dict__copy(self):
         return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class DPCombinedEnvConfig:
+    MAX_EP_LENGTH: int = 2000
+    VEL_OBS_SCALE: float = 0.1
+    FRC_OBS_SCALE: float = 0.001
+    ADD_FOOT_CONTACT_OBS: bool = False
+    ADD_EXTRA_CONTACT_OBS: bool = True
+    ACT_SCALE: float = 20.0
+    ADD_TORSO_OBS: bool = True
+    ADD_JOINT_FORCE_OBS: bool = False
+    ADD_ABSPOS_OBS: bool = False
+    ADD_PHASE_OBS: bool = True
+    ADD_PLAYER_ACTION_OBS: bool = True
+    MAX_PLAYER_ACTIONS: int = 3
+    AMNESTY_STEPS: int = 150
+    # ---- training-only RSI shaping (defaults = reference behavior,
+    # src/combined_env.py:208-244) ------------------------------------
+    # fraction of resets placed in the LAST quarter of the getup clip,
+    # so the policy practices the getup -> locomotion handoff
+    HANDOFF_RSI_FRAC: float = 0.0
+    # randomize the reset player action between walk and run (reference
+    # resets always command walk)
+    RSI_RANDOM_PA: bool = False
+    # fraction of resets drawn from the ON-POLICY handoff buffer: the
+    # trainer captures the physical (qpos, qvel) at every GETUP ->
+    # locomotion transition the current policy reaches, so the handoff
+    # is practiced from the state distribution the policy really meets
+    HANDOFF_BUFFER_FRAC: float = 0.0
+    # fraction of resets at the getup clip's FIRST frame with ZERO
+    # velocity: the state an injected or real fall produces
+    FACEDOWN_RSI_FRAC: float = 0.0

@@ -186,14 +186,22 @@ class DPEnv:
         data = self.engine.data_view(state.qpos, state.qvel)
         return state, self._obs(data, state.qpos, state.qvel, idx)
 
-    def step(self, state: DPEnvState, action: torch.Tensor
-             ) -> Tuple[DPEnvState, StepOut]:
-        # derived fields (FK, contacts, cvel, forces) come from the
-        # step's own forward pass at the PRE-integration state — the
-        # reference's post-``mj_step`` staleness semantics
-        ctrl = self._mujoco_action(action)
-        qpos, qvel, data = self.engine.step(state.qpos, state.qvel, ctrl,
-                                           lam0=state.lam)
+    def step(self, state: DPEnvState, action: torch.Tensor,
+             force_state=None) -> Tuple[DPEnvState, StepOut]:
+        """One env step. ``force_state=(qpos, qvel)`` bypasses the
+        dynamics: the state is set and the fields are FRESH at it, like
+        the reference's set_state + forward; its ``lam`` is the empty
+        warm start."""
+        if force_state is not None:
+            qpos, qvel = force_state
+            data = self.engine.data_view(qpos, qvel)
+        else:
+            # derived fields (FK, contacts, cvel, forces) come from the
+            # step's own forward pass at the PRE-integration state — the
+            # reference's post-``mj_step`` staleness semantics
+            ctrl = self._mujoco_action(action)
+            qpos, qvel, data = self.engine.step(state.qpos, state.qvel,
+                                               ctrl, lam0=state.lam)
 
         obs = self._obs(data, qpos, qvel, state.idx_curr)
 

@@ -3,10 +3,12 @@
 Mirrors the reference's observation composition (reference:
 src/deepmimic_env.py:33-191): qpos[7:], scaled qvel[6:], torso RPY +
 yaw-aligned body-frame velocities, foot/extra floor-contact flags,
-joint forces, absolute geom positions and phase. The player-action
-encoding belongs to the combined env, a later slice of the port.
+joint forces, absolute geom positions, phase and the player-action
+encoding.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -15,6 +17,13 @@ from deepmimic_mujoco_tpu_torch.envs.spec import RobotSpec
 from deepmimic_mujoco_tpu_torch.physics.collision import Contacts
 from deepmimic_mujoco_tpu_torch.physics.step import EngineData
 from deepmimic_mujoco_tpu_torch.utils import quat as tq
+
+
+class PlayerActionObs(NamedTuple):
+    """Device encoding of the reference's PlayerAction object
+    (src/combined_env.py:38-64): a onehot index and a world heading."""
+    onehot: torch.Tensor          # (B, MAX_PLAYER_ACTIONS)
+    heading_world: torch.Tensor   # (B, 3)
 
 
 def _contact_flag(contacts: Contacts, geom_ids, floor_geom: int):
@@ -45,11 +54,26 @@ def get_torso_obs(spec: RobotSpec, data: EngineData, scale: float):
                         vel_rot[:, 1], vel_rot[:, 2]], -1) * scale
 
 
+def get_player_action_obs(spec: RobotSpec, data: EngineData,
+                          pa: PlayerActionObs, pa_getup_state):
+    """(B, 2 + MAX_PLAYER_ACTIONS + 2): [heading in the root frame (2),
+    onehot, pa_getup_state (2)] (reference: src/deepmimic_env.py:145-173).
+    """
+    root_yaw = tq.to_rpy(data.kin.xquat[:, spec.torso_body])[:, 2]
+    c, s = torch.cos(-root_yaw), torch.sin(-root_yaw)
+    hw = pa.heading_world
+    hx = hw[:, 0] * c - hw[:, 1] * s
+    hy = hw[:, 0] * s + hw[:, 1] * c
+    return torch.cat([torch.stack([hx, hy], -1), pa.onehot, pa_getup_state],
+                     -1)
+
+
 def get_obs(m, spec: RobotSpec, cfg, data: EngineData, qpos, qvel,
-            idx_curr, motion_len) -> torch.Tensor:
-    if cfg.ADD_PLAYER_ACTION_OBS:
-        raise NotImplementedError(
-            "player-action observations come with the combined env")
+            idx_curr, motion_len,
+            player_action: Optional[PlayerActionObs] = None,
+            pa_getup_state=None) -> torch.Tensor:
+    """``motion_len`` is an int, or a (B,) tensor when envs play clips
+    of different lengths."""
     parts = [qpos[:, 7:], qvel[:, 6:] * cfg.VEL_OBS_SCALE]
     if cfg.ADD_TORSO_OBS:
         parts.append(get_torso_obs(spec, data, cfg.VEL_OBS_SCALE))
@@ -70,6 +94,16 @@ def get_obs(m, spec: RobotSpec, cfg, data: EngineData, qpos, qvel,
     if cfg.ADD_PHASE_OBS:
         phase = torch.clamp(idx_curr.to(qpos.dtype) / motion_len, 0.0, 1.0)
         parts.append(phase[:, None])
+    if cfg.ADD_PLAYER_ACTION_OBS:
+        B = qpos.shape[0]
+        if player_action is None:
+            player_action = PlayerActionObs(
+                onehot=qpos.new_zeros(B, cfg.MAX_PLAYER_ACTIONS),
+                heading_world=qpos.new_zeros(B, 3))
+        if pa_getup_state is None:
+            pa_getup_state = qpos.new_zeros(B, 2)
+        parts.append(get_player_action_obs(spec, data, player_action,
+                                           pa_getup_state))
     return torch.cat(parts, -1)
 
 

@@ -1,4 +1,4 @@
-"""Engine: the forward-dynamics pipeline and the Euler integrator.
+"""Engine: the forward-dynamics pipeline and its integrators.
 
 One ``Engine`` per :class:`PhysicsModel` precomputes all static tables
 (collision pair slots, dof masks, limit rows) at build time; its
@@ -8,7 +8,7 @@ One ``Engine`` per :class:`PhysicsModel` precomputes all static tables
 Pipeline: kinematics -> com quantities -> collision -> velocities ->
 CRBA -> RNE bias -> passive + actuation -> fused mass-matrix and
 contact/limit constraint solve -> integrate (semi-implicit Euler with
-implicit joint damping). The RK4 integrator is not ported yet.
+implicit joint damping, or RK4, the reference MJCF's integrator).
 """
 from __future__ import annotations
 
@@ -71,14 +71,9 @@ class Engine:
             else model.opt.iterations
         self.integrator = integrator if integrator is not None \
             else model.opt.integrator
-        if self.integrator == RK4:
-            raise NotImplementedError(
-                "the RK4 integrator is not ported yet; pass "
-                "integrator=EULER")
-        if not (model.njnt and model.jnt_type[0] == FREE
-                and np.all(np.asarray(model.jnt_type[1:]) == HINGE)):
-            raise NotImplementedError(
-                "the port integrates a free root joint followed by hinges")
+        self.single_free_root = bool(
+            model.njnt and model.jnt_type[0] == FREE
+            and np.all(np.asarray(model.jnt_type[1:]) == HINGE))
         self.dt = model.opt.timestep
         self.tables = build_pair_tables(model, mesh_subcapsules)
         if any(g.is_proxy.any() for g in self.tables):
@@ -198,23 +193,71 @@ class Engine:
 
     # ---- integration ---------------------------------------------------
     def integrate_pos(self, qpos, qvel, h):
-        """qpos advance with quaternion integration of the free root
-        (local-frame angular velocity convention) and the hinges."""
-        quat = tq.integrate(qpos[:, 3:7], qvel[:, 3:6], h)
-        return torch.cat([qpos[:, 0:3] + h * qvel[:, 0:3], quat,
-                          qpos[:, 7:] + h * qvel[:, 6:]], 1)
+        """qpos advance with quaternion integration of free joints
+        (local-frame angular velocity convention). Fast path for a free
+        root followed by hinges; the per-joint loop otherwise."""
+        if self.single_free_root:
+            quat = tq.integrate(qpos[:, 3:7], qvel[:, 3:6], h)
+            return torch.cat([qpos[:, 0:3] + h * qvel[:, 0:3], quat,
+                              qpos[:, 7:] + h * qvel[:, 6:]], 1)
+        return self.integrate_pos_generic(qpos, qvel, h)
+
+    def integrate_pos_generic(self, qpos, qvel, h):
+        """The per-joint loop: free joints move and turn, every other
+        joint advances one scalar (the JAX package treats hinge and slide
+        alike, and so does this)."""
+        m = self.m
+        new = qpos.clone()
+        for j in range(m.njnt):
+            qadr = int(m.jnt_qposadr[j])
+            dadr = int(m.jnt_dofadr[j])
+            if m.jnt_type[j] == FREE:
+                new[:, qadr:qadr + 3] = (qpos[:, qadr:qadr + 3]
+                                         + h * qvel[:, dadr:dadr + 3])
+                new[:, qadr + 3:qadr + 7] = tq.integrate(
+                    qpos[:, qadr + 3:qadr + 7], qvel[:, dadr + 3:dadr + 6], h)
+            else:
+                new[:, qadr] = qpos[:, qadr] + h * qvel[:, dadr]
+        return new
 
     def step(self, qpos, qvel, ctrl, lam0=None):
-        """One semi-implicit Euler step with implicit joint damping at
-        the model timestep. Returns (qpos', qvel', EngineData of the
-        forward evaluation at the pre-step state)."""
+        """One physics step at the model timestep. Returns (qpos', qvel',
+        EngineData).
+
+        Euler: semi-implicit with implicit joint damping; the data is
+        the forward evaluation at the pre-step state. RK4: four explicit
+        forwards at offsets (0, h/2, h/2, h), each cold-started (``lam0``
+        is ignored, as in the JAX package), weighted (1, 2, 2, 1)/6; the
+        data is the pre-step position/velocity view (no fifth forward),
+        whose ``lam`` is the empty warm start."""
         h = self.dt
+        if self.integrator == RK4:
+            return self._step_rk4(qpos, qvel, ctrl)
         if not self.warm_start_lam:
             lam0 = None
         d = self.forward(qpos, qvel, ctrl, h_implicit=h, lam0=lam0)
         qvel_new = qvel + d.qacc * h
         qpos_new = self.integrate_pos(qpos, qvel_new, h)
         return qpos_new, qvel_new, d
+
+    def _step_rk4(self, qpos, qvel, ctrl):
+        v_prev, a_prev = qvel, torch.zeros_like(qvel)
+        vs, accs = [], []
+        for off in (0.0, self.dt / 2, self.dt / 2, self.dt):
+            q_i = self.integrate_pos(qpos, v_prev, off)
+            v_i = qvel + a_prev * off
+            a_i = self.forward(q_i, v_i, ctrl).qacc
+            vs.append(v_i)
+            accs.append(a_i)
+            v_prev, a_prev = v_i, a_i
+        w = const(self.m, "rk4_weights",
+                  lambda: np.asarray([1.0, 2.0, 2.0, 1.0], np.float32),
+                  qpos.device, qpos.dtype)[:, None, None] / 6.0
+        v_avg = (torch.stack(vs) * w).sum(0)
+        a_avg = (torch.stack(accs) * w).sum(0)
+        qpos_new = self.integrate_pos(qpos, v_avg, self.dt)
+        qvel_new = qvel + a_avg * self.dt
+        return qpos_new, qvel_new, self.data_view(qpos, qvel)
 
     def data_view(self, qpos, qvel) -> EngineData:
         """Position+velocity stage fields only (no dynamics)."""

@@ -2,9 +2,10 @@
 
 ``save``/``restore`` write and read everything a PPO run needs to resume
 exactly: the params, the Adam state (with its update count), the env
-states, the generators' states, ``global_step`` and ``lr_scale``, with
-``torch.save``. ``save_params``/``restore_params`` keep a params-only
-state dict (deployment, eval, warm starts). The JAX package's orbax
+states, the generators' states, ``global_step``, ``lr_scale`` and the
+combined env's handoff buffer, with ``torch.save``.
+``save_params``/``restore_params`` keep a params-only state dict
+(deployment, eval, warm starts). The JAX package's orbax
 checkpoints are not read here: committed ones reach the port as actor
 npz files (``rl/convert.py``).
 """
@@ -33,7 +34,9 @@ def save(path: str, ts) -> str:
         "last_obs": ts.last_obs,
         "gens": {k: g.get_state() for k, g in ts.gens.items()},
         "global_step": ts.global_step, "ep_return": ts.ep_return,
-        "ep_length": ts.ep_length, "lr_scale": ts.lr_scale}, path)
+        "ep_length": ts.ep_length, "lr_scale": ts.lr_scale,
+        "handoff_buf": (None if ts.handoff_buf is None
+                        else dict(ts.handoff_buf._asdict()))}, path)
     return path
 
 
@@ -55,6 +58,9 @@ def restore(path: str, template):
     template.ep_return = data["ep_return"].to(dev)
     template.ep_length = data["ep_length"].to(dev)
     template.lr_scale = float(data["lr_scale"])
+    if data.get("handoff_buf") is not None:
+        template.handoff_buf = type(template.handoff_buf)(
+            **{k: v.to(dev) for k, v in data["handoff_buf"].items()})
     return template
 
 

@@ -30,7 +30,8 @@ def eval_rollout(ppo, net, env=None, max_steps: int = 1000, seed: int = 0,
 
     ``idx_init=None`` uses reference-state initialization like the
     reference's eval (a pinned frame 0 is a standing start the policy
-    never trains from)."""
+    never trains from). A combined env (no ``mocap_data_len``) always
+    starts from its own reset draws."""
     env = env or ppo.env
     traj = _episode_fn(ppo, env, idx_init, max_steps)(
         net, torch.Generator(device=env.device).manual_seed(seed))
@@ -50,7 +51,12 @@ def _episode_fn(ppo, env, idx_init, max_steps: int):
         rec = {k: [] for k in ("obs", "action", "reward", "value", "qpos",
                                "done_reason", "alive")}
         with torch.no_grad():
-            state, obs = env.reset(1, generator=generator, idx_init=idx_init)
+            if idx_init is None or not hasattr(env, "mocap_data_len"):
+                # RSI, and the combined env's own reset draws
+                state, obs = env.reset(1, generator=generator)
+            else:
+                state, obs = env.reset(1, generator=generator,
+                                       idx_init=idx_init)
             for _ in range(max_steps):
                 mean, _, value = net(obs)
                 mean = networks.env_action(net, obs, mean)

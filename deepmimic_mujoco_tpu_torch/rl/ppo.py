@@ -1,13 +1,16 @@
 """PPO on the card: rollout -> GAE -> clipped update, in torch.
 
 The port of the JAX package's ``rl/ppo.py``. One iteration steps a batch
-of envs ``horizon`` times under a sampled policy
-(``DPEnv.step_auto_reset``), computes GAE with the training-only
+of envs ``horizon`` times under a sampled policy (``step_auto_reset`` of
+a ``DPEnv`` or a ``DPCombinedEnv``), computes GAE with the training-only
 alive/velocity shaping and its anneal, then runs ``epochs`` passes of
 clipped-surrogate updates over minibatches of the flattened rollout,
 with value clipping, the per-minibatch advantage-std floor, the log-std
 bounds (``networks.clip_preserve_inward``), the KL guard and the
-adaptive lr-by-KL controller.
+adaptive lr-by-KL controller. With a combined env whose
+``HANDOFF_BUFFER_FRAC`` is above 0, the rollout carries the on-policy
+handoff buffer: each step captures the states of the envs that just left
+GETUP for locomotion, and resets draw from it.
 
 Where torch's defaults differ from the JAX package's, this module writes
 the JAX package's form by hand:
@@ -89,6 +92,11 @@ class PPOConfig:
     init_log_std: float = 0.0
     net_arch: tuple = (256, 128)
     total_timesteps: int = 500_000_000
+    # capacity of the on-policy handoff buffer (combined env only; armed
+    # when env.ENV_CFG.HANDOFF_BUFFER_FRAC > 0): physical states captured
+    # at GETUP -> locomotion transitions during the rollout, fed back as
+    # reset states
+    handoff_buffer_cap: int = 4096
 
 
 @dataclasses.dataclass
@@ -96,8 +104,9 @@ class TrainState:
     """Everything an iteration reads and writes. ``net`` holds the params
     and ``opt`` the Adam state over them (its ``count`` of updates drives
     the lr schedule); ``gens`` are the generators of the action noise
-    ("act"), the minibatch permutations ("perm") and the RSI reset frames
-    ("rsi")."""
+    ("act"), the minibatch permutations ("perm") and the RSI reset draws
+    ("rsi"); ``handoff_buf`` is the combined env's on-policy handoff
+    buffer (None when unused)."""
     net: torch.nn.Module
     opt: Adam
     env_states: Any
@@ -107,6 +116,7 @@ class TrainState:
     ep_return: torch.Tensor     # (n_envs,) running episode accounting
     ep_length: torch.Tensor
     lr_scale: float             # adaptive lr-by-KL state (1.0 when off)
+    handoff_buf: Any = None
 
 
 class Transition(NamedTuple):
@@ -134,6 +144,8 @@ class IterStats(NamedTuple):
     lr_scale: float
     # max active contacts dropped by slot saturation in the rollout
     contact_overflow_max: torch.Tensor
+    # valid rows in the on-policy handoff buffer (None when unused)
+    handoff_count: Optional[torch.Tensor] = None
 
 
 def _f32(x) -> float:
@@ -196,17 +208,16 @@ class Adam:
 
 
 class PPO:
-    """Trainer bound to a functional env (``DPEnv``)."""
+    """Trainer bound to a functional env (``DPEnv`` or
+    ``DPCombinedEnv``)."""
 
     def __init__(self, env, cfg: Optional[PPOConfig] = None):
         self.env = env
         self.cfg = cfg or PPOConfig()
         env_cfg = getattr(env, "ENV_CFG", None)
-        if (hasattr(env, "make_handoff_buffer") and env_cfg is not None
-                and getattr(env_cfg, "HANDOFF_BUFFER_FRAC", 0.0) > 0.0):
-            raise NotImplementedError(
-                "the on-policy handoff buffer belongs to the combined env, "
-                "which is not ported yet (ROADMAP Queue 1 item 3)")
+        self._handoff = bool(
+            hasattr(env, "make_handoff_buffer") and env_cfg is not None
+            and getattr(env_cfg, "HANDOFF_BUFFER_FRAC", 0.0) > 0.0)
         self.device = env.device
         cfg = self.cfg
         self.steps_per_iter = cfg.horizon * cfg.n_envs
@@ -241,7 +252,9 @@ class PPO:
             ep_return=torch.zeros(cfg.n_envs, device=self.device),
             ep_length=torch.zeros(cfg.n_envs, dtype=torch.int64,
                                   device=self.device),
-            lr_scale=1.0)
+            lr_scale=1.0,
+            handoff_buf=(self.env.make_handoff_buffer(
+                cfg.handoff_buffer_cap) if self._handoff else None))
 
     # ---- the draws --------------------------------------------------------
     def draw_noise(self, ts: TrainState, mean: torch.Tensor) -> torch.Tensor:
@@ -261,6 +274,7 @@ class PPO:
         net = ts.net
         states, obs = ts.env_states, ts.last_obs
         ep_ret, ep_len = ts.ep_return, ts.ep_length
+        hbuf = ts.handoff_buf
         trs, stats = [], []
         with torch.no_grad():
             for _ in range(cfg.horizon):
@@ -268,8 +282,18 @@ class PPO:
                 action = mean + torch.exp(log_std) * self.draw_noise(ts, mean)
                 logp = networks.gaussian_logp(action, mean, log_std)
                 env_a = networks.env_action(net, obs, action)
-                states, out = self.env.step_auto_reset(states, env_a,
-                                                       ts.gens["rsi"])
+                if self._handoff:
+                    prev_motion = states.motion_id
+                    prev_pa = states.player_action
+                    states, out = self.env.step_auto_reset(
+                        states, env_a, ts.gens["rsi"], handoff_buf=hbuf)
+                    mask = self.env.handoff_capture_mask(prev_motion, out)
+                    hbuf = self.env.update_handoff_buffer(
+                        hbuf, mask, states.qpos, states.qvel, prev_pa,
+                        out.motion_id)
+                else:
+                    states, out = self.env.step_auto_reset(states, env_a,
+                                                           ts.gens["rsi"])
                 ep_ret = ep_ret + out.reward
                 ep_len = ep_len + 1
                 done_f = out.done.to(torch.float32)
@@ -291,6 +315,7 @@ class PPO:
         traj = Transition(*[torch.stack(x) for x in zip(*trs)])
         ts.env_states, ts.last_obs = states, obs
         ts.ep_return, ts.ep_length = ep_ret, ep_len
+        ts.handoff_buf = hbuf
         return traj, torch.stack(stats)
 
     def gae(self, ts: TrainState, traj: Transition):
@@ -441,7 +466,9 @@ class PPO:
             approx_kl=means[3], clip_frac=means[4],
             log_std_mean=ts.net.log_std.detach().mean(),
             v_loss_max=aux[..., 1].max(), lr_scale=ts.lr_scale,
-            contact_overflow_max=stats[:, 4].max())
+            contact_overflow_max=stats[:, 4].max(),
+            handoff_count=(ts.handoff_buf.count if self._handoff
+                           else None))
         return ts, it
 
     # ---- host loop -------------------------------------------------------

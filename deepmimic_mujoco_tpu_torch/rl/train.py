@@ -1,6 +1,5 @@
 """Training entry point:
-``python -m deepmimic_mujoco_tpu_torch.rl.train <reason> --env
-deep_mimic_mujoco ...``.
+``python -m deepmimic_mujoco_tpu_torch.rl.train <reason> [--env ...]``.
 
 The port of the JAX package's PPO trainer CLI (reference:
 src/sb3_ppo.py:244-314): the run-reason guard, a config snapshot, JSONL
@@ -9,13 +8,12 @@ evaluations with best-params saves, and a final train-state checkpoint.
 A failed evaluation does not stop training, but ``main`` raises it once
 the final checkpoint is saved.
 Thousands of envs step as one batch on the card (``--device``, default
-cuda).
+cuda). The default ``--env`` is the combined walk/run/getup env, with
+its handoff and facedown options; ``--rk4`` trains under RK4.
 
-Not ported yet, and refused with NotImplementedError: the combined env
-(the CLI's default ``--env``; ROADMAP Queue 1 item 3) with its handoff
-and facedown flags, and ``--rk4`` (ROADMAP Queue 1 item 4). The eval
-dashboard's video needs ``--no-render`` until the render port (ROADMAP
-Queue 1 item 7).
+Not ported yet, and refused with NotImplementedError: the eval
+dashboard's video, which needs ``--no-render`` until the render port
+(ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -100,15 +98,27 @@ def parse_reason(argv=None, required=True):
                    help="per-link capsule proxies for mesh "
                         "self-collision (G1); default = engine default")
     p.add_argument("--rk4", action="store_true",
-                   help="train under RK4 (not ported yet)")
+                   help="train under RK4 (reference MJCF integrator) "
+                        "instead of semi-implicit Euler")
     p.add_argument("--handoff-rsi", type=float, default=0.0,
-                   help="combined env (not ported yet)")
+                   help="combined env: fraction of resets placed in "
+                        "the last quarter of the getup clip")
     p.add_argument("--rsi-random-pa", action="store_true",
-                   help="combined env (not ported yet)")
+                   help="combined env: randomize reset player action "
+                        "between walk and run")
     p.add_argument("--handoff-buffer", type=float, default=0.0,
-                   help="combined env (not ported yet)")
+                   help="combined env: fraction of resets drawn from "
+                        "the on-policy handoff buffer (states captured "
+                        "at GETUP->locomotion transitions during "
+                        "rollout)")
+    p.add_argument("--handoff-buffer-cap", type=int, default=4096,
+                   help="accepted for the JAX CLI's command lines; like "
+                        "there, its value reaches nothing (the buffer "
+                        "keeps PPOConfig.handoff_buffer_cap, 4096)")
     p.add_argument("--facedown-rsi", type=float, default=0.0,
-                   help="combined env (not ported yet)")
+                   help="fraction of combined-env resets at getup "
+                        "frame 0 with zero velocity (the injected-"
+                        "fall state) so full recovery is practiced")
     args = p.parse_args(argv)
     if required and not args.reason and not args.no_wandb:
         raise ValueError("Please provide a reason for this run")
@@ -117,22 +127,6 @@ def parse_reason(argv=None, required=True):
 
 
 def _refuse_unported(args):
-    if args.env != "deep_mimic_mujoco":
-        raise NotImplementedError(
-            f"--env {args.env}: the combined env is not ported yet "
-            "(ROADMAP Queue 1 item 3); pass --env deep_mimic_mujoco")
-    if args.rk4:
-        raise NotImplementedError(
-            "--rk4: the RK4 integrator is not ported yet (ROADMAP Queue 1 "
-            "item 4)")
-    flags = [f for f, on in (("--handoff-rsi", args.handoff_rsi),
-                             ("--rsi-random-pa", args.rsi_random_pa),
-                             ("--handoff-buffer", args.handoff_buffer),
-                             ("--facedown-rsi", args.facedown_rsi)) if on]
-    if flags:
-        raise NotImplementedError(
-            f"{', '.join(flags)}: combined-env options; the combined env "
-            "is not ported yet (ROADMAP Queue 1 item 3)")
     if not args.no_render:
         raise NotImplementedError(
             "the eval dashboard's video waits for the render port (ROADMAP "
@@ -145,16 +139,28 @@ def main(argv=None):
 
     import torch
 
-    from deepmimic_mujoco_tpu_torch.envs import DPEnv
+    from deepmimic_mujoco_tpu_torch.envs import (
+        DPCombinedEnv, DPCombinedEnvConfig, DPEnv,
+    )
+    from deepmimic_mujoco_tpu_torch.models.physics_model import RK4
     from deepmimic_mujoco_tpu_torch.rl import checkpoint
     from deepmimic_mujoco_tpu_torch.rl.eval import ThreadedEvaluator
     from deepmimic_mujoco_tpu_torch.rl.ppo import PPO, PPOConfig
 
     eng_kw = {k: v for k, v in dict(
         warm_start_lam=args.warm_start_lam,
-        mesh_subcapsules=args.mesh_subcapsules).items() if v is not None}
-    env = DPEnv(motion=args.motion, robot=args.robot, speed=args.speed,
-                device=args.device, **eng_kw)
+        mesh_subcapsules=args.mesh_subcapsules,
+        integrator=RK4 if args.rk4 else None).items() if v is not None}
+    if args.env == "deep_mimic_mujoco":
+        env = DPEnv(motion=args.motion, robot=args.robot, speed=args.speed,
+                    device=args.device, **eng_kw)
+    else:
+        ccfg = DPCombinedEnvConfig(
+            HANDOFF_RSI_FRAC=args.handoff_rsi,
+            RSI_RANDOM_PA=args.rsi_random_pa,
+            HANDOFF_BUFFER_FRAC=args.handoff_buffer,
+            FACEDOWN_RSI_FRAC=args.facedown_rsi)
+        env = DPCombinedEnv(cfg=ccfg, device=args.device, **eng_kw)
 
     if args.preset == "legacy-ppo2":
         cfg = PPOConfig(n_envs=args.n_envs, horizon=128,
@@ -232,7 +238,11 @@ def main(argv=None):
 
     def callback(it, ts, stats):
         gstep = (it + 1) * steps_per_iter
+        extra = {}
+        if stats.handoff_count is not None:
+            extra["handoff_count"] = int(stats.handoff_count)
         log_metrics({
+            **extra,
             "global_step": gstep,
             "mean_reward": float(stats.mean_reward),
             "ep_return": float(stats.ep_return_sum)

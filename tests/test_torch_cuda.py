@@ -272,6 +272,112 @@ def test_ppo_iteration_on_card_matches_cpu(cuda_device):
         assert _err(a, b) < TOL_STEP, k
 
 
+@pytest.mark.gpu
+def test_combined_step_on_card_matches_cpu(cuda_device):
+    """step_auto_reset of the combined env on the card (handoff buffer
+    armed, every reset option on, forced draws) against the CPU path:
+    one launch per step, motion ids, steps and dones equal, obs, rewards
+    and states within the step tolerance, the buffer update equal."""
+    from deepmimic_mujoco_tpu_torch.envs import (
+        DPCombinedEnv, DPCombinedEnvConfig,
+    )
+
+    cfg = DPCombinedEnvConfig(HANDOFF_RSI_FRAC=0.3, RSI_RANDOM_PA=True,
+                              HANDOFF_BUFFER_FRAC=0.5, FACEDOWN_RSI_FRAC=0.2)
+    n = 16
+    envs = {d: DPCombinedEnv(cfg=cfg, device=d)
+            for d in (cuda_device, torch.device("cpu"))}
+    cpu = envs[torch.device("cpu")]
+    g = torch.Generator().manual_seed(3)
+    buf = cpu.make_handoff_buffer(32)
+    buf = cpu.update_handoff_buffer(
+        buf, torch.ones(4, dtype=torch.bool), cpu.mocap_qpos[1, :4],
+        cpu.mocap_qvel[1, :4], torch.ones(4, dtype=torch.int64),
+        torch.full((4,), 1))
+    draws = [cpu.draw_reset(n, g, buf) for _ in range(3)]
+    acts = [torch.rand(n, cpu.action_size, generator=g) * 0.6 - 0.3
+            for _ in range(2)]
+    outs = {}
+    for dev, env in envs.items():
+        mv = lambda t: type(t)(*[x.to(dev) for x in t])
+        b = mv(buf)
+        state, _ = env.reset(n, draws=mv(draws[0]))
+        before = fs.fused_solve.launches
+        for i in range(2):
+            prev = state.motion_id
+            pa = state.player_action
+            state, out = env.step_auto_reset(state, acts[i].to(dev),
+                                             handoff_buf=b,
+                                             draws=mv(draws[i + 1]))
+            b = env.update_handoff_buffer(b, env.handoff_capture_mask(
+                prev, out), state.qpos, state.qvel, pa, out.motion_id)
+        outs[dev.type] = (state, out, b, fs.fused_solve.launches - before)
+    (sg, og, bg, ng), (sc, oc, bc, nc) = outs["cuda"], outs["cpu"]
+    assert (ng, nc) == (2, 0)
+    for k in ("motion_id", "n_steps", "player_action", "episode_length"):
+        assert torch.equal(getattr(sc, k), getattr(sg, k).cpu()), k
+    for k in ("done", "done_reason", "motion_id"):
+        assert torch.equal(getattr(oc, k), getattr(og, k).cpu()), k
+    for a, b in ((sc.qpos, sg.qpos), (sc.qvel, sg.qvel), (oc.obs, og.obs),
+                 (oc.reward, og.reward)):
+        assert _err(a, b) < TOL_STEP
+    assert torch.equal(bc.count, bg.count.cpu())
+    assert torch.equal(bc.head, bg.head.cpu())
+
+
+@pytest.mark.gpu
+def test_rk4_step_on_card_matches_cpu(cuda_device):
+    """An RK4 DPEnv step on the card: four launches (cold-started
+    stages), within the step tolerance of the CPU path."""
+    from deepmimic_mujoco_tpu_torch.models.physics_model import RK4
+
+    frames = torch.tensor([0, 15, 30, 45, 60, 70])
+    act = torch.tensor(np.random.RandomState(1).uniform(
+        -1, 1, (len(frames), 28)).astype(np.float32)) * 0.5
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        env = DPEnv(motion="walk", robot="humanoid3d", integrator=RK4,
+                    device=dev)
+        state, _ = env.reset(len(frames), idx_init=frames.to(dev))
+        before = fs.fused_solve.launches
+        state, out = env.step(state, act.to(dev))
+        outs.append((state, out, fs.fused_solve.launches - before))
+    (sg, og, ng), (sc, oc, nc) = outs
+    assert (ng, nc) == (4, 0)
+    for a, b in ((sc.qpos, sg.qpos), (sc.qvel, sg.qvel), (oc.obs, og.obs),
+                 (oc.reward, og.reward)):
+        assert _err(a, b) < TOL_STEP
+    assert torch.equal(oc.done, og.done.cpu())
+    assert torch.equal(sc.lam, sg.lam.cpu())
+
+
+@pytest.mark.gpu
+def test_cli_trains_combined_env_on_card(cuda_device, tmp_path,
+                                         monkeypatch):
+    """One tiny training iteration of the CLI's default (combined) env on
+    the card, with the handoff buffer armed."""
+    import functools
+    import glob
+    import json
+
+    from deepmimic_mujoco_tpu_torch.rl import eval as rl_eval
+    from deepmimic_mujoco_tpu_torch.rl.train import main
+
+    monkeypatch.setattr(rl_eval, "eval_dashboard_rollout", functools.partial(
+        rl_eval.eval_dashboard_rollout, max_steps=8))
+    ts = main(["card", "--n-envs", "8", "--horizon", "4", "--minibatch",
+               "16", "--epochs", "1", "--total", "32", "--no-wandb",
+               "--no-render", "--out", str(tmp_path), "--handoff-buffer",
+               "0.5", "--facedown-rsi", "0.2"])
+    assert ts.global_step == 32 and ts.last_obs.is_cuda
+    assert ts.handoff_buf.qpos.is_cuda
+    rows = [json.loads(line) for line in open(glob.glob(
+        str(tmp_path / "*_metrics.jsonl"))[0])]
+    it = [r for r in rows if "pg_loss" in r]
+    assert len(it) == 1 and "handoff_count" in it[0]
+    assert np.isfinite(it[0]["pg_loss"])
+
+
 def test_check_fits_names_the_limit():
     """The error an engine on the card raises when no compiled plan holds
     its solve names the largest max_contacts that fits (runs anywhere)."""

@@ -270,12 +270,25 @@ def test_ppo_iterations_match_jax(case):
 
 
 def test_refuses_handoff_buffer():
+    """The trainer no longer refuses the combined env's handoff buffer: an
+    env with the hooks and HANDOFF_BUFFER_FRAC > 0 gets a buffer of
+    ``handoff_buffer_cap`` rows in its train state; others get none."""
+    caps = []
+
     class Combined(TScripted):
         class ENV_CFG:
             HANDOFF_BUFFER_FRAC = 0.2
 
         def make_handoff_buffer(self, cap):
-            raise AssertionError
+            caps.append(cap)
+            return "buffer"
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tppo.PPO(Combined(), tppo.PPOConfig(n_envs=N, horizon=H))
+    ppo = tppo.PPO(Combined(), tppo.PPOConfig(n_envs=N, horizon=H,
+                                              handoff_buffer_cap=7))
+    assert ppo._handoff
+    assert ppo.init(seed=0).handoff_buf == "buffer" and caps == [7]
+    Combined.ENV_CFG.HANDOFF_BUFFER_FRAC = 0.0
+    plain = tppo.PPO(Combined(), tppo.PPOConfig(n_envs=N, horizon=H))
+    assert not plain._handoff and plain.init(seed=0).handoff_buf is None
+    assert tppo.PPO(TScripted(), tppo.PPOConfig(
+        n_envs=N, horizon=H)).init(seed=0).handoff_buf is None

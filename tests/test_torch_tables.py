@@ -207,7 +207,10 @@ def test_port_imports_no_jax_side_module():
     scanned = {os.path.relpath(p, _PORT) for p in srcs}
     for mod in ("physics/collision.py", "mocap/loader.py", "rl/networks.py",
                 "rl/ppo.py", "rl/checkpoint.py", "rl/eval.py",
-                "rl/train.py", "rl/convert.py"):
+                "rl/train.py", "rl/convert.py", "envs/combined_env.py",
+                "envs/config.py", "envs/obs.py", "envs/dp_env.py",
+                "physics/step.py", "physics/sensors.py",
+                "tools/play_combined.py"):
         assert mod in scanned, mod
     bad = []
     for path in srcs:

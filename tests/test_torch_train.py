@@ -269,18 +269,25 @@ def test_cli_raises_failed_evals(tmp_path, monkeypatch):
 
 
 def test_cli_guards():
+    from deepmimic_mujoco_tpu_torch.rl.train import _refuse_unported
+
     with pytest.raises(ValueError, match="reason"):
         parse_reason([])
     assert parse_reason(["--no-wandb"]).no_wandb
     assert parse_reason(["why"]).device == "cuda"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    # the default combined env, its flags and --rk4 run now (trained at a
+    # tiny size in tests/test_torch_combined_train.py); only rendering
+    # is refused
+    for extra in ([], ["--rk4"], ["--facedown-rsi", "0.1"],
+                  ["--handoff-buffer", "0.2"], ["--handoff-rsi", "0.3"],
+                  ["--rsi-random-pa"], ["--handoff-buffer-cap", "8"]):
+        args = parse_reason(["why", "--no-wandb", "--no-render", *extra])
+        assert args.env == "dp_combined_env"
+        _refuse_unported(args)
+    assert parse_reason(["why", "--handoff-buffer-cap", "8"]
+                        ).handoff_buffer_cap == 8
+    with pytest.raises(NotImplementedError, match="render"):
         main(["why", "--no-wandb"])          # the default combined env
-    for extra, item in ((["--rk4"], "item 4"),
-                        (["--facedown-rsi", "0.1"], "item 3"),
-                        (["--handoff-buffer", "0.2"], "item 3")):
-        with pytest.raises(NotImplementedError, match=item):
-            main(["why", "--env", "deep_mimic_mujoco", "--no-wandb",
-                  "--device", "cpu", *extra])
     with pytest.raises(NotImplementedError, match="render"):
         main(["why", "--env", "deep_mimic_mujoco", "--no-wandb",
               "--device", "cpu"])
