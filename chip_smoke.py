@@ -58,18 +58,40 @@ Phases, each printed with its seconds:
      --handoff-buffer 0.25 and --facedown-rsi 0.1, at its default widths
      for two iterations: as phase 5 (without the round trip), and the
      buffer holds rows after the iterations
-  9. gate replays, each in a process of its own (``--replay NAME``),
-     all started together (each is host-bound), with mean actions:
+  9. SAC main path: 256 humanoid3d walk envs (SAC's default n_envs, one
+     partial wave of the kernel) under a seeded SAC actor that samples
+     squashed actions; the kernel is held against its plain version on
+     the first collect step's inputs and timed, as in phase 3
+ 10. SAC training: the SAC CLI's main() at its default widths (256 envs,
+     a 1,000,000-row replay buffer, batch 1024, 32 steps and 32 updates
+     an iteration, nets (1024, 512)) for two iterations with an
+     evaluation after each: 32 launches per iteration in the training
+     thread, env-steps/s with the collect and the updates apart, the
+     buffer's bytes, finite losses, alpha >= exp(log_alpha_min), the
+     best actor written; then one update step under torch.profiler
+ 11. SAC distill: distill_actor_from_ppo from the h3d walk gate actor at
+     its defaults (4096 envs x 64 steps, 3000 BC steps): the kernel held
+     and timed on the rollout's first-step inputs, 64 launches, the BC
+     loss ending below its step-0 value; the distilled actor is kept for
+     its replay
+ 12. tools: profiling.stage_breakdown at humanoid3d B 2048 (8 rows, the
+     kernel launched once per call by the forward, full-step and
+     env-step rows only) and profiling.throughput_sweep at B 256, 1024,
+     2048 and 4096
+ 13. gate replays, each in a process of its own (``--replay NAME``),
+     all started together (each is host-bound), with mean actions; a
+     batch replay reads its alive flags every 50 steps and stops once
+     every episode has ended:
      - the humanoid3d walk gate actor from frame 20 and the three G1
        gate actors (walk and run from frame 20, getup from frame 0), each
        above its gate (90, 90, 90, 60) with no overflow, beside the JAX
        replay
      - the RK4 walk gate actor from frame 20 for 1000 steps: reward > 90,
-       no overflow, 4000 launches
+       no overflow, 4 launches per step
      - the combined actor from the reset the JAX package draws from
        PRNGKey(0) (data/combined_gate_start.npz) and from 31 copies of
        it with the start velocity moved by 1e-5 x N(0, 1), as one batch
-       of 32 for 2000 steps with no host sync per step; each episode
+       of 32 for up to 2000 steps; each episode
        against the bar (reward > 100, length >= 1900, no overflow); the
        median reward must exceed 100 and 8 episodes clear the bar; one
        launch per step
@@ -77,6 +99,14 @@ Phases, each printed with its seconds:
        force-tracked warm start and a fall injected at step 520: the fall
        -> to_getup -> getup path must run, and each physics step launches
        the kernel once
+     - the SAC walk gate actor (data/sac_walk_gate_actor.npz) and the
+       actor distilled in phase 11, as one batch of 2 from frame 20 for
+       up to 1000 steps under tanh(mean): the gate actor's reward > 50
+       (the JAX package's scan: 67.52 over 380 steps), the distilled
+       one's printed (no gate), one launch per step
+     - tools/play.main on data/run_extracted.npz (G1 run, through
+       GymDPEnv and the numpy ExtractedPolicy, golden test first) with
+       --assert-reward 90, one launch per step
 
 Then one JSON line per kernel table, and as the last line the result
 object. Exits non-zero, printing no result, when no CUDA device is
@@ -135,7 +165,29 @@ GATES = {
     "g1_getup": ("g1_getup_gate_actor.npz", "getup_facedown_slow_FSI",
                  "unitree_g1", 0, 60.0, 69.4),
 }
-REPLAYS = (*GATES, "combined", "rk4", "play_combined")
+# the SAC walk gate (tests/test_checkpoint_gates.py:280-315): the actor,
+# its start frame, gate and the JAX package's replay (its scan on the
+# CPU: 67.52 over 380 steps; 16 starts moved by 1e-5 in velocity give
+# 67.48-67.54)
+SAC_GATE = ("sac_walk_gate_actor.npz", 20, 50.0, 67.52)
+# the SAC CLI at its default widths (256 envs, buffer 1,000,000, batch
+# 1024, 32 steps and 32 updates an iteration, arch (1024, 512)) for two
+# iterations, with an evaluation after each
+SAC_PER_ITER = 256 * 32
+SAC_ARGV = ["chip smoke", "--total", str(2 * SAC_PER_ITER),
+            "--eval-every", str(SAC_PER_ITER)]
+# the distill's teacher, and where its student is kept for the replay
+DISTILL_TEACHER = "h3d_walk_gate_actor.npz"
+DISTILLED = os.path.join(REPO, "build", "sac_smoke", "distilled_actor.npz")
+# tools/play.main on the extracted G1 run artifact, with its gate (the
+# artifact holds the run_r5_default_gate weights, tests/test_checkpoint_
+# gates.py:230-277)
+PLAY_EXTRACTED_ARGV = ["--checkpoint", os.path.join(
+    REPO, "deepmimic_mujoco_tpu_torch", "data", "run_extracted.npz"),
+    "--motion", "run", "--robot", "unitree_g1", "--assert-reward", "90"]
+SWEEP_BATCHES = (256, 1024, 2048, 4096)
+REPLAYS = (*GATES, "combined", "rk4", "play_combined", "sac",
+           "play_extracted_run")
 REPLAY_TIMEOUT = 900
 
 
@@ -343,12 +395,15 @@ def rollout_counted(env, net, state, action, n_steps, g_rsi, g_act,
     return state, action, launches, wall, int(n_done), int(ov)
 
 
-def replay_masked(env, actor, state, obs, max_steps):
-    """Deterministic episodes of ``max_steps`` steps, one per env of the
-    batch, with no host sync per step: each env's reward and largest
+def replay_masked(env, act, state, obs, max_steps, check_every=50):
+    """Deterministic episodes of up to ``max_steps`` steps under
+    ``act(obs)``, one per env of the batch: each env's reward and largest
     contact overflow while it is alive (the done step included), as the
-    gate tests' scans count them. Returns numpy arrays (reward, max
-    overflow, episode length), one entry per env."""
+    gate tests' scans count them. The host reads the batch's alive flags
+    every ``check_every`` steps (no sync in between) and stops once every
+    episode has ended, which changes no count. Returns (reward, max
+    overflow, episode length) as numpy arrays, one entry per env, and
+    the steps run."""
     import torch
 
     n, dev = obs.shape[0], obs.device
@@ -356,16 +411,20 @@ def replay_masked(env, actor, state, obs, max_steps):
     total = torch.zeros(n, device=dev)
     length = torch.zeros(n, dtype=torch.int64, device=dev)
     ov = torch.zeros(n, dtype=torch.int64, device=dev)
+    steps = 0
     with torch.no_grad():
-        for _ in range(max_steps):
-            mean, _, _ = actor(obs)
-            state, out = env.step(state, mean)
+        while steps < max_steps:
+            state, out = env.step(state, act(obs))
             total += out.reward * alive
             length += alive
             ov = torch.maximum(ov, out.contact_overflow * alive)
             alive &= ~out.done
             obs = out.obs
-    return total.cpu().numpy(), ov.cpu().numpy(), length.cpu().numpy()
+            steps += 1
+            if steps % check_every == 0 and not bool(alive.any()):
+                break
+    return (total.cpu().numpy(), ov.cpu().numpy(), length.cpu().numpy(),
+            steps)
 
 
 def perturbed_qvel(qvel0, n, noise):
@@ -418,7 +477,9 @@ def replay_job(name):
     from deepmimic_mujoco_tpu_torch.envs import DPCombinedEnv, DPEnv
     from deepmimic_mujoco_tpu_torch.models.physics_model import RK4
     from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
-    from deepmimic_mujoco_tpu_torch.rl.convert import actor_from_npz
+    from deepmimic_mujoco_tpu_torch.rl.convert import (
+        actor_from_npz, sac_actor_from_npz,
+    )
     from deepmimic_mujoco_tpu_torch.utils.device import fp32_physics
 
     torch.set_num_threads(1)
@@ -426,6 +487,7 @@ def replay_job(name):
     dev = torch.device("cuda")
     data = os.path.join(REPO, "deepmimic_mujoco_tpu_torch", "data")
     fs.fused_solve.launches = 0
+    t0 = time.perf_counter()
     if name in GATES or name == "rk4":
         if name == "rk4":
             actor_file, idx0, _, _ = RK4_GATE
@@ -436,9 +498,23 @@ def replay_job(name):
             env = DPEnv(motion=motion, robot=robot, device=dev)
         state, obs = env.reset(1, idx_init=idx0)
         actor = actor_from_npz(os.path.join(data, actor_file), device=dev)
-        rews, ovs, lens = replay_masked(env, actor, state, obs, 1000)
+        rews, ovs, lens, steps = replay_masked(
+            env, lambda o: actor(o)[0], state, obs, 1000)
         res = dict(reward=float(rews[0]), overflow=int(ovs[0]),
-                   length=int(lens[0]))
+                   length=int(lens[0]), steps=steps)
+    elif name == "sac":
+        # the SAC gate actor and the actor distilled in phase 11, as
+        # envs 0 and 1 of one batch, under tanh(mean)
+        env = DPEnv(motion="walk", robot="humanoid3d", device=dev)
+        state, obs = env.reset(2, idx_init=SAC_GATE[1])
+        gate = sac_actor_from_npz(os.path.join(data, SAC_GATE[0]),
+                                  device=dev)
+        distilled = sac_actor_from_npz(DISTILLED, device=dev)
+        act = lambda o: torch.tanh(torch.cat([gate(o[:1])[0],
+                                              distilled(o[1:])[0]]))
+        rews, ovs, lens, steps = replay_masked(env, act, state, obs, 1000)
+        res = dict(rewards=rews.tolist(), overflows=ovs.tolist(),
+                   lengths=lens.tolist(), steps=steps)
     elif name == "combined":
         env = DPCombinedEnv(device=dev)
         start = np.load(os.path.join(data, "combined_gate_start.npz"))
@@ -450,15 +526,18 @@ def replay_job(name):
             full("motion_id"), full("n_steps"), full("player_action"))
         actor = actor_from_npz(os.path.join(data, COMBINED_GATE[0]),
                                device=dev)
-        rews, ovs, lens = replay_masked(env, actor, state, obs,
-                                        COMBINED_STEPS)
+        rews, ovs, lens, steps = replay_masked(
+            env, lambda o: actor(o)[0], state, obs, COMBINED_STEPS)
         res = dict(rewards=rews.tolist(), overflows=ovs.tolist(),
-                   lengths=lens.tolist())
+                   lengths=lens.tolist(), steps=steps)
     elif name == "play_combined":
         res = play_combined_run()
+    elif name == "play_extracted_run":
+        res = play_extracted_run()
     else:
         raise ValueError(f"no replay named {name}")
     res["launches"] = fs.fused_solve.launches
+    res["seconds"] = time.perf_counter() - t0
     print("REPLAY_RESULT " + json.dumps(res), flush=True)
 
 
@@ -496,6 +575,33 @@ def play_combined_run(device="cuda"):
                 path_ran=bool(path_ran))
 
 
+def play_extracted_run(device="cuda"):
+    """tools/play.main on the extracted G1 run artifact (golden-vector
+    test first, then one episode through GymDPEnv with the reward gate);
+    returns its reward, the steps it ran and whether the golden test
+    passed. Its output is printed whether or not the gate holds."""
+    import contextlib
+    import io
+
+    from deepmimic_mujoco_tpu_torch.tools import play
+
+    argv = [*PLAY_EXTRACTED_ARGV, "--device", device]
+    print("python -m deepmimic_mujoco_tpu_torch.tools.play "
+          + " ".join(os.path.relpath(a, REPO) if os.path.isabs(a) else a
+                     for a in argv))
+    log = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(log):
+            ep_rew = play.main(argv)
+    finally:
+        for line in log.getvalue().splitlines():
+            print("  " + line)
+    text = log.getvalue()
+    return dict(reward=ep_rew,
+                steps=int(re.search(r"over (\d+) steps", text).group(1)),
+                golden="golden-vector test OK" in text)
+
+
 def run_replays(card, names, timeout):
     """Every named replay in a process of its own, all started together;
     prints each one's lines in order and returns {name: result}. Every
@@ -514,7 +620,10 @@ def run_replays(card, names, timeout):
             out, _ = proc.communicate(
                 timeout=max(deadline - time.monotonic(), 1))
             lines = out.splitlines()
-            print(f"-- replay {name} on {card} (exit {proc.returncode}):")
+            sec = [json.loads(line.split(" ", 1)[1]).get("seconds")
+                   for line in lines if line.startswith("REPLAY_RESULT ")]
+            print(f"-- replay {name} on {card} (exit {proc.returncode}"
+                  + (f", {sec[0]:.2f} s" if sec else "") + "):")
             for line in lines:
                 if not line.startswith("REPLAY_RESULT "):
                     print("  " + line)
@@ -529,6 +638,42 @@ def run_replays(card, names, timeout):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+def profiled_calls(fn, reps):
+    """(device kernels, device ms, wall ms) per call of fn, under
+    torch.profiler after three warm-up calls."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        tw = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - tw) * 1e3 / reps
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in ev) / reps,
+            sum(getattr(e, "self_device_time_total", 0.0)
+                for e in ev) / reps / 1e3, wall)
+
+
+def wall_ms(fn, reps):
+    """Wall ms per call of fn, unprofiled, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - tw) * 1e3 / reps
 
 
 def update_step_profile(ppo, ts, card):
@@ -556,37 +701,9 @@ def update_step_profile(ppo, ts, card):
         adv = torch.randn(n, generator=g, device=dev)
         mb = [obs, action, logp, value, adv, value + adv]
 
-    def calls(fn, reps):
-        """(device kernels, device ms, wall ms) per call of fn."""
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            tw = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - tw) * 1e3 / reps
-        ev = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-        return (sum(e.count for e in ev) / reps,
-                sum(getattr(e, "self_device_time_total", 0.0)
-                    for e in ev) / reps / 1e3, wall)
-
-    def timed(fn, reps):
-        """Wall ms per call of fn, unprofiled."""
-        fn()
-        torch.cuda.synchronize()
-        tw = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - tw) * 1e3 / reps
-
-    k, d_ms, w_ms = calls(lambda: ppo.minibatch_step(ts, mb, params), 20)
-    mb_ms = timed(lambda: ppo.minibatch_step(ts, mb, params), 50)
+    k, d_ms, w_ms = profiled_calls(
+        lambda: ppo.minibatch_step(ts, mb, params), 20)
+    mb_ms = wall_ms(lambda: ppo.minibatch_step(ts, mb, params), 50)
     print(f"update minibatch step ({n} samples, net {cfg.net_arch}) on "
           f"{card}: {k:.0f} device kernels, device busy {d_ms:.4f} ms of "
           f"{w_ms:.4f} ms wall ({100 * d_ms / w_ms:.1f}%) under the "
@@ -604,8 +721,8 @@ def update_step_profile(ppo, ts, card):
     for name, step in (("port Adam (optax arithmetic)",
                         lambda: port_adam.step(lr)),
                        ("torch.optim.Adam(fused=True)", torch_adam.step)):
-        k, d_ms, _ = calls(step, 20)
-        rows.append((name, k, d_ms, timed(step, 200)))
+        k, d_ms, _ = profiled_calls(step, 20)
+        rows.append((name, k, d_ms, wall_ms(step, 200)))
     print(f"optimizer step over {len(params)} params on {card}: " + "; ".join(
         f"{name} {k:.0f} device kernels, device {d_ms:.4f} ms, "
         f"{w_ms:.4f} ms wall" for name, k, d_ms, w_ms in rows))
@@ -613,7 +730,7 @@ def update_step_profile(ppo, ts, card):
 
 
 def ppo_training(card, dev, argv, out_name, env=None):
-    """Phases 7 and 13: the CLI's main() on ``argv`` for two iterations.
+    """Phases 5 and 8: the CLI's main() on ``argv`` for two iterations.
     With ``env``, then the checkpoint round trip and the update profile.
     Returns the kernel launches of each iteration in the training thread,
     read from the kernel's per-thread count (the CLI's evaluator thread
@@ -747,6 +864,197 @@ def ppo_training(card, dev, argv, out_name, env=None):
             setattr(ppo_mod.PPO, n, fn)
     update_step_profile(ppo, ts, card)
     return iter_launches, eval_launches, handoff
+
+
+def sac_training(card):
+    """Phase 10: the SAC CLI's main() at its default widths for two
+    iterations, with an evaluation after each. Per iteration: the
+    training thread's kernel launches (its count zeroed just before the
+    iteration and read just after), env-steps/s with the collect and the
+    updates apart, losses and alpha; then one update step under
+    torch.profiler. Returns (launches per iteration, evaluator launches,
+    the numbers for the kernels line)."""
+    import glob
+    import math
+    import threading
+
+    import torch
+
+    from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
+    from deepmimic_mujoco_tpu_torch.rl import sac as sac_mod, sac_train
+
+    out_dir = os.path.join(REPO, "build", "sac_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    by_thread = fs.fused_solve.launches_by_thread
+    me = threading.get_ident()
+    times, trainers, evals = [], [], []
+    collect, train_iter = sac_mod.SAC.collect, sac_mod.SAC.train_iter
+    eval_episode = sac_train.eval_episode
+
+    def timed_collect(self, st):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = collect(self, st)
+        torch.cuda.synchronize()
+        times.append(("collect", time.perf_counter() - t))
+        return out
+
+    def counted_iter(self, st):
+        trainers.append(self)
+        torch.cuda.synchronize()
+        by_thread[me] = 0
+        t = time.perf_counter()
+        out = train_iter(self, st)
+        torch.cuda.synchronize()
+        times.append(("train_iter", time.perf_counter() - t,
+                      by_thread.get(me, 0)))
+        return out
+
+    def counted_eval(*a, **k):
+        n0 = by_thread.get(me, 0)
+        t = time.perf_counter()
+        rew = eval_episode(*a, **k)
+        evals.append((rew, by_thread.get(me, 0) - n0,
+                      time.perf_counter() - t))
+        return rew
+
+    sac_mod.SAC.collect, sac_mod.SAC.train_iter = timed_collect, counted_iter
+    sac_train.eval_episode = counted_eval
+    try:
+        argv = [*SAC_ARGV, "--out", out_dir]
+        print("python -m deepmimic_mujoco_tpu_torch.rl.sac_train "
+              + " ".join(repr(a) if " " in a else a for a in argv))
+        s = sac_train.main(argv)
+    finally:
+        sac_mod.SAC.collect, sac_mod.SAC.train_iter = collect, train_iter
+        sac_train.eval_episode = eval_episode
+    sac = trainers[0]
+    cfg = sac.cfg
+    rows = [json.loads(line) for line in open(sorted(glob.glob(
+        os.path.join(out_dir, "*_metrics.jsonl")))[-1])]
+    conf = rows[0]["config"]
+    check((conf["n_envs"], conf["buffer_size"], conf["batch_size"],
+           tuple(conf["arch"]), cfg.steps_per_iter, cfg.updates_per_iter)
+          == (256, 1_000_000, 1024, (1024, 512), 32, 32),
+          f"not the SAC CLI's default widths: {conf}")
+    iters = rows[1:]
+    check(len(iters) == 2, f"{len(iters)} SAC iterations logged, not 2")
+    per_it = [t for t in times if t[0] == "train_iter"]
+    coll = [t for t in times if t[0] == "collect"]
+    launches = [t[2] for t in per_it]
+    floor = math.exp(cfg.log_alpha_min)
+    for i, r in enumerate(iters):
+        it_s, col_s = per_it[i][1], coll[i][1]
+        print(f"SAC iteration {i + 1} on {card}: "
+              f"{SAC_PER_ITER / it_s:.1f} env-steps/s ({it_s:.3f} s: "
+              f"collect {col_s:.3f} s for {cfg.steps_per_iter} steps of "
+              f"{cfg.n_envs} envs, updates {it_s - col_s:.3f} s for "
+              f"{cfg.updates_per_iter} x {cfg.batch_size}); critic_loss "
+              f"{r['critic_loss']:.6f} actor_loss {r['actor_loss']:.6f} "
+              f"alpha {r['alpha']:.6f} mean_reward {r['mean_reward']:.4f} "
+              f"ep_return {r['ep_return']:.3f} ep_length "
+              f"{r['ep_length']:.1f} eval_ep_rew "
+              f"{r.get('eval_ep_rew', float('nan')):.2f}; kernel launches "
+              f"in the training thread {launches[i]}")
+        check(math.isfinite(r["critic_loss"])
+              and math.isfinite(r["actor_loss"]),
+              f"non-finite SAC losses in iteration {i + 1}: {r}")
+        check(r["alpha"] >= floor * (1 - 1e-6),
+              f"alpha {r['alpha']} below exp(log_alpha_min) = {floor}")
+    check(launches == [cfg.steps_per_iter] * 2,
+          f"kernel launches per SAC iteration: {launches}")
+    nbytes = sac_mod.buffer_bytes(s.buffer)
+    print(f"replay buffer on {card}: {cfg.buffer_size:,} rows x "
+          f"(2 x {sac.env.obs_size} + {sac.env.action_size} + 2) float32 "
+          f"= {nbytes:,} bytes ({nbytes / 2**20:.1f} MiB); buf_pos "
+          f"{s.buf_pos}, full {s.buf_full}")
+    print(f"evaluations on {card}: " + ", ".join(
+        f"reward {r:.2f} ({n} launches, {t:.2f} s)" for r, n, t in evals))
+    check(len(evals) == 2 and all(0 < n <= 1000 for _, n, _ in evals),
+          f"evaluations: {evals}")
+    best = glob.glob(os.path.join(out_dir, "*_best_actor.npz"))
+    check(best, "no best-actor checkpoint written")
+
+    # one update step, profiled
+    valid = cfg.buffer_size if s.buf_full else max(s.buf_pos, 1)
+    step = lambda: sac.update_step(s, valid, 1.0)
+    k, d_ms, w_ms = profiled_calls(step, 10)
+    up_ms = wall_ms(step, 20)
+    print(f"SAC update step (batch {cfg.batch_size}, net "
+          f"{cfg.net_arch}, twin critics, three Adams) on {card}: "
+          f"{k:.0f} device kernels, device busy {d_ms:.4f} ms of "
+          f"{w_ms:.4f} ms wall ({100 * d_ms / w_ms:.1f}%) under the "
+          f"profiler; {up_ms:.4f} ms per update unprofiled")
+    return launches, [n for _, n, _ in evals], dict(
+        env_steps_per_s=[SAC_PER_ITER / t[1] for t in per_it],
+        collect_s=[t[1] for t in coll],
+        update_s=[p[1] - c[1] for p, c in zip(per_it, coll)],
+        buffer_bytes=nbytes, eval_rewards=[r for r, _, _ in evals],
+        update_kernels=k, update_busy_share=d_ms / w_ms)
+
+
+def sac_distill(card, env):
+    """Phase 11: distill_actor_from_ppo from the h3d walk gate actor at
+    its defaults (4096 envs x 64 steps under the PPO mean, 3000 BC
+    steps). The kernel is first held against its plain version on the
+    rollout's first-step inputs and timed; then the counts are zeroed
+    and the distill must launch it 64 times. The distilled actor is
+    written for its replay. Returns (launches, the kernel's numbers)."""
+    import torch
+
+    from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
+    from deepmimic_mujoco_tpu_torch.rl import checkpoint, sac_train
+    from deepmimic_mujoco_tpu_torch.rl.sac import SAC, SACConfig
+
+    teacher = os.path.join(REPO, "deepmimic_mujoco_tpu_torch", "data",
+                           DISTILL_TEACHER)
+    dev = env.device
+    with torch.no_grad():
+        ppo_net = sac_train.load_ppo_policy(teacher, env)
+        g = torch.Generator(device=dev).manual_seed(16)
+        state, obs = env.reset(4096, generator=g)
+        args, kw = capture_parts(env, state, ppo_net(obs)[0])
+    k_numbers = kernel_on_main_path("SAC distill h3d", card, args, kw)
+    del args, state, obs
+
+    sac = SAC(env, SACConfig())
+    collect = sac_train.collect_ppo_states
+    spans = []
+
+    def timed_collect(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = collect(*a, **k)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t)
+        return out
+
+    sac_train.collect_ppo_states = timed_collect
+    torch.cuda.synchronize()
+    fs.fused_solve.launches = 0
+    try:
+        t = time.perf_counter()
+        actor_sd, losses = sac_train.distill_actor_from_ppo(sac, env,
+                                                            teacher)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t
+        launches = fs.fused_solve.launches
+    finally:
+        sac_train.collect_ppo_states = collect
+    losses = losses.cpu()
+    print(f"distill on {card}: rollout 4096 envs x "
+          f"{sac_train.DISTILL_HORIZON} steps {spans[0]:.3f} s "
+          f"({launches} kernel launches), {len(losses)} BC steps "
+          f"{total - spans[0]:.3f} s; bc loss step 0 {float(losses[0]):.5f}"
+          f", last {float(losses[-1]):.5f}, min {float(losses.min()):.5f}")
+    check(launches == sac_train.DISTILL_HORIZON,
+          f"distill rollout launched the kernel {launches} times")
+    check(float(losses[-1]) < float(losses[0]),
+          "the BC loss did not fall below its step-0 value")
+    actor = sac.make_actor()
+    actor.load_state_dict(actor_sd)
+    checkpoint.save_sac_actor_npz(DISTILLED, actor)
+    return launches, k_numbers
 
 
 def main():
@@ -1054,7 +1362,57 @@ def main():
           f"handoff_count after the iterations: {comb_handoff}")
     done(t0, "PPO combined")
 
-    # ---- 9. gate replays --------------------------------------------------
+    # ---- 9. SAC main path --------------------------------------------------
+    t0 = phase("SAC main path")
+    from deepmimic_mujoco_tpu_torch.rl.sac import (
+        SAC, SACConfig, squash_sample,
+    )
+    from deepmimic_mujoco_tpu_torch.tools import profiling
+
+    with torch.no_grad():
+        env = DPEnv(motion="walk", robot="humanoid3d", device=dev)
+        sac_cfg = SACConfig()
+        sac = SAC(env, sac_cfg)
+        actor = sac.make_actor(torch.Generator().manual_seed(13))
+        g_rsi = torch.Generator(device=dev).manual_seed(14)
+        g_act = torch.Generator(device=dev).manual_seed(15)
+        state, obs = env.reset(sac_cfg.n_envs, generator=g_rsi)
+        mean, log_std = actor(obs)
+        a, _ = squash_sample(mean, log_std, torch.randn(
+            mean.shape, generator=g_act, device=dev))
+        s_args, s_kw = capture_parts(env, state, a * sac_cfg.action_scale)
+        sac_k = kernel_on_main_path("SAC h3d", card, s_args, s_kw)
+        del s_args, state, obs, actor
+    done(t0, "SAC main path")
+
+    # ---- 10. SAC training --------------------------------------------------
+    t0 = phase("SAC training")
+    sac_launches, sac_eval, sac_numbers = sac_training(card)
+    done(t0, "SAC training")
+
+    # ---- 11. distill --------------------------------------------------------
+    t0 = phase("SAC distill")
+    distill_launches, distill_k = sac_distill(card, env)
+    done(t0, "SAC distill")
+
+    # ---- 12. tools ----------------------------------------------------------
+    t0 = phase("tools")
+    print(f"profiling.stage_breakdown(humanoid3d walk, batch 2048) on "
+          f"{card}:")
+    stages = profiling.stage_breakdown(env, 2048)
+    stage_launches = {name: n for name, _, _, n in stages}
+    check(len(stages) == 8 and stage_launches == {
+        "fk": 0, "fk+com": 0, "collision": 0, "crb(M)": 0, "rne(bias)": 0,
+        "forward": 1, "full step": 1, "env step": 1},
+        f"stage rows and their kernel launches per call: {stage_launches}")
+    print(f"profiling.throughput_sweep(humanoid3d walk) on {card}:")
+    sweep = profiling.throughput_sweep(env, SWEEP_BATCHES)
+    print("  batch | env-steps/s\n" + "\n".join(
+        f"  {b:5d} | {sps:.1f}" for b, sps in sweep))
+    del env
+    done(t0, "tools")
+
+    # ---- 13. gate replays -------------------------------------------------
     t0 = phase("gate replays")
     import numpy as np
 
@@ -1076,7 +1434,8 @@ def main():
           f"{r['overflow']}; {r['launches']} kernel launches in 1000 steps")
     check(r["reward"] > gate, f"RK4 gate reward {r['reward']:.2f} <= {gate}")
     check(r["overflow"] == 0, f"RK4 gate dropped {r['overflow']} contacts")
-    check(r["launches"] == 4000, f"RK4 gate: {r['launches']} launches")
+    check(r["launches"] == 4 * r["steps"],
+          f"RK4 gate: {r['launches']} launches in {r['steps']} steps")
     r = res["combined"]
     rews, ovs, lens = (np.asarray(r[k]) for k in (
         "rewards", "overflows", "lengths"))
@@ -1101,8 +1460,8 @@ def main():
     check(int(ok.sum()) >= COMBINED_MIN_PASS,
           f"{int(ok.sum())} of {len(rews)} combined gate episodes clear "
           "the bar")
-    check(r["launches"] == COMBINED_STEPS,
-          f"combined gate: {r['launches']} launches")
+    check(r["launches"] == r["steps"],
+          f"combined gate: {r['launches']} launches in {r['steps']} steps")
     r = res["play_combined"]
     print(f"play_combined on {card}: reward {r['reward']:.2f} over "
           f"{r['steps']} steps, {r['injected']} fall(s) injected, recovery "
@@ -1112,6 +1471,29 @@ def main():
     check(r["launches"] == r["physics_steps"],
           f"play_combined: {r['launches']} launches for "
           f"{r['physics_steps']} physics steps")
+    r = res["sac"]
+    actor_file, idx0, gate, jax_rew = SAC_GATE
+    print(f"SAC humanoid3d walk gate replay on {card}: reward "
+          f"{r['rewards'][0]:.2f} over {r['lengths'][0]} steps from frame "
+          f"{idx0} (JAX replay {jax_rew}, gate {gate}), max contact "
+          f"overflow {r['overflows'][0]}; beside it the actor distilled in "
+          f"phase 11 (no gate): reward {r['rewards'][1]:.2f} over "
+          f"{r['lengths'][1]} steps, max contact overflow "
+          f"{r['overflows'][1]}; {r['launches']} kernel launches in "
+          f"{r['steps']} steps of the pair")
+    check(r["rewards"][0] > gate,
+          f"SAC gate reward {r['rewards'][0]:.2f} <= {gate}")
+    check(r["launches"] == r["steps"],
+          f"SAC gate: {r['launches']} launches in {r['steps']} steps")
+    r = res["play_extracted_run"]
+    print(f"tools.play of run_extracted.npz on {card}: reward "
+          f"{r['reward']:.2f} over {r['steps']} steps (gate 90), golden "
+          f"test {'passed' if r['golden'] else 'not run'}; "
+          f"{r['launches']} kernel launches")
+    check(r["golden"] and r["reward"] > 90.0,
+          f"play of the extracted run artifact: {r}")
+    check(r["launches"] == r["steps"],
+          f"play: {r['launches']} launches in {r['steps']} steps")
     done(t0, "gate replays")
 
     kernels = [{
@@ -1119,15 +1501,28 @@ def main():
         "route": "cuda",
         "source": "deepmimic_mujoco_tpu_torch/ops/csrc/fused_solve.cu",
         "replaces": "deepmimic_mujoco_tpu/ops/fused_solve.py:67",
-        # this slice's main path: the combined env (G1 plan), B 2048
-        "launches": comb_launches,
-        **comb_k,
+        # this slice's main path: SAC training's collect (h3d plan), B 256
+        "launches": sum(sac_launches),
+        **sac_k,
         "library_ms": None,
-        "regs": info["g1"]["regs"],
+        "regs": info["h3d"]["regs"],
         "spills": spills,
-        "smem_bytes": info["g1"]["smem_bytes"],
-        "blocks_per_sm": info["g1"]["blocks_per_sm"],
+        "smem_bytes": info["h3d"]["smem_bytes"],
+        "blocks_per_sm": info["h3d"]["blocks_per_sm"],
         "paths": {
+            "sac_h3d_b256": {"launches": sum(sac_launches), **sac_k},
+            "sac_train": {"launches": sum(sac_launches),
+                          "launches_per_iteration": sac_launches,
+                          "evaluator_launches": sac_eval, **sac_numbers},
+            "sac_distill": {"launches": distill_launches, **distill_k,
+                            "distilled_replay_reward":
+                                res["sac"]["rewards"][1]},
+            "sac_gate": {"launches": res["sac"]["launches"],
+                         "reward": res["sac"]["rewards"][0]},
+            "play_extracted": {
+                "launches": res["play_extracted_run"]["launches"],
+                "reward": res["play_extracted_run"]["reward"]},
+            "throughput_sweep": {str(b): sps for b, sps in sweep},
             "h3d_walk_b2048": {"launches": h3d_launches, **h3d_k,
                                "regs": info["h3d"]["regs"],
                                "blocks_per_sm": info["h3d"]["blocks_per_sm"]},
@@ -1136,7 +1531,10 @@ def main():
                             "launches_per_iteration": ppo_launches,
                             "evaluator_launches": eval_launches},
             "combined_b2048": {"launches": comb_launches, **comb_k,
-                               "handoff_count": handoff_count},
+                               "handoff_count": handoff_count,
+                               "regs": info["g1"]["regs"],
+                               "smem_bytes": info["g1"]["smem_bytes"],
+                               "blocks_per_sm": info["g1"]["blocks_per_sm"]},
             "combined_gate": {"launches": res["combined"]["launches"],
                               "episodes": len(rews),
                               "cleared": int(ok.sum()),

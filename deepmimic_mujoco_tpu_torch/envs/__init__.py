@@ -10,3 +10,6 @@ from deepmimic_mujoco_tpu_torch.envs.combined_env import (  # noqa: F401
 from deepmimic_mujoco_tpu_torch.envs.config import (  # noqa: F401
     DPCombinedEnvConfig,
 )
+from deepmimic_mujoco_tpu_torch.envs.gym_wrapper import (  # noqa: F401
+    GymDPCombinedEnv, GymDPEnv,
+)

@@ -5,9 +5,10 @@ exactly: the params, the Adam state (with its update count), the env
 states, the generators' states, ``global_step``, ``lr_scale`` and the
 combined env's handoff buffer, with ``torch.save``.
 ``save_params``/``restore_params`` keep a params-only state dict
-(deployment, eval, warm starts). The JAX package's orbax
-checkpoints are not read here: committed ones reach the port as actor
-npz files (``rl/convert.py``).
+(deployment, eval, warm starts); ``save_actor_npz`` and
+``save_sac_actor_npz`` write a PPO or SAC actor as npz. The JAX
+package's orbax checkpoints are not read here: committed ones reach the
+port as actor npz files (``rl/convert.py``).
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ import os
 import numpy as np
 import torch
 
-from deepmimic_mujoco_tpu_torch.rl.convert import actor_npz_arrays
+from deepmimic_mujoco_tpu_torch.rl.convert import (
+    actor_npz_arrays, sac_actor_npz_arrays,
+)
 
 
 def _path(path: str) -> str:
@@ -86,6 +89,13 @@ def save_actor_npz(path: str, net) -> str:
     """The actor in the ``w0..bN`` + ``log_std`` npz format."""
     path = _path(path)
     np.savez(path, **actor_npz_arrays(net))
+    return path
+
+
+def save_sac_actor_npz(path: str, actor) -> str:
+    """A SAC ``Actor`` in its npz format (``rl/convert.py``)."""
+    path = _path(path if path.endswith(".npz") else path + ".npz")
+    np.savez(path, **sac_actor_npz_arrays(actor))
     return path
 
 

@@ -135,6 +135,10 @@ class PDTargetActorCritic(ActorCritic):
                                  persistent=False)
         self.vel_obs_scale = float(vel_obs_scale)
         self.act_scale = float(act_scale)
+        # the gains as given, in float64: a deployment artifact
+        # (rl/extracted_policy.py) stores them unrounded
+        self.pd_gains = (np.asarray(kp, np.float64),
+                         np.asarray(kd, np.float64))
 
     def env_action(self, obs, a_delta):
         qvel = obs[..., self.qvel_cols] / self.vel_obs_scale

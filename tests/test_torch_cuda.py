@@ -14,6 +14,7 @@ from deepmimic_mujoco_tpu_torch.envs import DPEnv
 from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
 from deepmimic_mujoco_tpu_torch.physics import solver
 from deepmimic_mujoco_tpu_torch.rl.ppo import PPO, PPOConfig
+from deepmimic_mujoco_tpu_torch.rl.sac import SAC, SACConfig
 from deepmimic_mujoco_tpu_torch.utils.device import resolve_device
 
 TOL_KERNEL = 2e-4   # max|d|/scale, tests/test_fused_solve.py
@@ -376,6 +377,89 @@ def test_cli_trains_combined_env_on_card(cuda_device, tmp_path,
     it = [r for r in rows if "pg_loss" in r]
     assert len(it) == 1 and "handoff_count" in it[0]
     assert np.isfinite(it[0]["pg_loss"])
+
+
+class _ForcedSAC(SAC):
+    """SAC's four draws made on the CPU from a fixed seed."""
+
+    def init(self, seed=0, init_actor=None):
+        self._g = torch.Generator().manual_seed(seed + 100)
+        return super().init(seed, init_actor)
+
+    def _normal(self, gen, like):
+        return torch.randn(like.shape, generator=self._g).to(like.device)
+
+    def draw_idx(self, s, valid):
+        return torch.randint(0, valid, (self.cfg.batch_size,),
+                             generator=self._g).to(self.device)
+
+
+@pytest.mark.gpu
+def test_sac_iteration_on_card_matches_cpu(cuda_device):
+    """One SAC iteration on humanoid3d walk envs on the card (one launch
+    per collect step) against the CPU path, with the same draws: the
+    buffer, the losses and the nets within the step tolerance."""
+    cfg = SACConfig(n_envs=8, buffer_size=64, batch_size=16,
+                    steps_per_iter=4, updates_per_iter=3, net_arch=(32, 16))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        env = _ForcedFramesEnv(motion="walk", robot="humanoid3d", device=dev)
+        sac = _ForcedSAC(env, cfg)
+        s = sac.init(seed=2)
+        before = fs.fused_solve.launches
+        s, st = sac.train_iter(s)
+        out[dev.type] = (s, st, fs.fused_solve.launches - before)
+    (sg, stg, ng), (sc, stc, nc) = out["cuda"], out["cpu"]
+    assert (ng, nc) == (cfg.steps_per_iter, 0)
+    assert sg.buf_pos == sc.buf_pos == 32 and sg.buffer["obs"].is_cuda
+    for k in ("obs", "action", "reward", "next_obs"):
+        assert _err(sc.buffer[k], sg.buffer[k]) < TOL_STEP, k
+    assert torch.equal(sc.buffer["done"], sg.buffer["done"].cpu())
+    for k in stc._fields:
+        a, b = float(getattr(stc, k)), float(getattr(stg, k))
+        assert abs(a - b) <= TOL_STEP * max(abs(a), 1e-3), (k, a, b)
+    for net in ("actor", "critic", "target_critic"):
+        for (k, a), b in zip(getattr(sc, net).state_dict().items(),
+                             getattr(sg, net).state_dict().values()):
+            assert _err(a, b) < TOL_STEP, (net, k)
+
+
+@pytest.mark.gpu
+def test_gym_env_step_on_card_matches_cpu(cuda_device):
+    """GymDPEnv on the card (one launch a step) against the CPU path."""
+    from deepmimic_mujoco_tpu_torch.envs.gym_wrapper import GymDPEnv
+
+    acts = np.random.RandomState(2).uniform(-0.3, 0.3, (3, 28))
+    res = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        g = GymDPEnv(motion="walk", robot="humanoid3d", device=dev)
+        obs = [g.reset_model(idx_init=20)]
+        before = fs.fused_solve.launches
+        steps = [g.step(a) for a in acts]
+        res[dev.type] = (obs + [s[0] for s in steps], [s[1] for s in steps],
+                         [s[2] for s in steps], fs.fused_solve.launches
+                         - before)
+    (og, rg, dg, ng), (oc, rc, dc, nc) = res["cuda"], res["cpu"]
+    assert (ng, nc) == (len(acts), 0)
+    for a, b in zip(oc, og):
+        assert _err(torch.tensor(a), torch.tensor(b)) < TOL_STEP
+    assert np.allclose(rc, rg, rtol=0, atol=TOL_STEP) and dc == dg
+
+
+@pytest.mark.gpu
+def test_stage_breakdown_on_card(cuda_device):
+    """profiling.stage_breakdown at batch 256 on the card: 8 rows, the
+    kernel launched once per call by the forward, full-step and env-step
+    rows and by no other."""
+    from deepmimic_mujoco_tpu_torch.tools.profiling import stage_breakdown
+
+    env = DPEnv(motion="walk", robot="humanoid3d", device=cuda_device)
+    rows = stage_breakdown(env, batch=256)
+    assert len(rows) == 8
+    assert {name: n for name, _, _, n in rows} == {
+        "fk": 0, "fk+com": 0, "collision": 0, "crb(M)": 0, "rne(bias)": 0,
+        "forward": 1, "full step": 1, "env step": 1}
+    assert all(ms > 0 for _, ms, _, _ in rows)
 
 
 def test_check_fits_names_the_limit():

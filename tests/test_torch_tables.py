@@ -210,7 +210,9 @@ def test_port_imports_no_jax_side_module():
                 "rl/train.py", "rl/convert.py", "envs/combined_env.py",
                 "envs/config.py", "envs/obs.py", "envs/dp_env.py",
                 "physics/step.py", "physics/sensors.py",
-                "tools/play_combined.py"):
+                "tools/play_combined.py", "rl/sac.py", "rl/sac_train.py",
+                "rl/extracted_policy.py", "envs/gym_wrapper.py",
+                "tools/play.py", "tools/probe.py", "tools/profiling.py"):
         assert mod in scanned, mod
     bad = []
     for path in srcs:
@@ -234,6 +236,9 @@ def test_port_imports_no_jax_side_module():
 
 
 def test_port_copies_no_asset():
-    exts = {os.path.splitext(p)[1] for p in _port_files()
-            if "__pycache__" not in p}
-    assert exts <= {".py", ".cu", ".npz"}, exts
+    files = [p for p in _port_files() if "__pycache__" not in p]
+    exts = {os.path.splitext(p)[1] for p in files}
+    assert exts <= {".py", ".cu", ".npz", ".json"}, exts
+    # the only JSON is an extracted policy's golden vector
+    assert all(p.endswith("_golden.json") for p in files
+               if p.endswith(".json"))
