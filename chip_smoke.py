@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Phases, each printed with its seconds:
-  0. card: name and power limit (nvidia-smi), torch's device name
+  0. card: name and power limit (nvidia-smi), torch's device name, and
+     whether cv2 and matplotlib are present: a part that draws with an
+     absent one is left out, and the line says which
   1. build: nvcc of every kernel source of the main path and of the
      fused solve's phase-clock variant, all started together; ptxas's
      registers and spills (any spill fails the run), and the blocks per
@@ -32,7 +34,10 @@ Phases, each printed with its seconds:
      64 step_auto_reset steps with the counts zeroed: 64 launches, no
      build_jt; env-steps/s and the largest contact overflow
   5. PPO training: the ported CLI's main() in-process on G1 walk at its
-     default widths for two iterations (--total 262144); per iteration
+     default widths for two iterations (--total 262144), rendering as its
+     default does (--no-render only where cv2 or matplotlib is absent):
+     the first evaluation's dashboard video (at least one frame, read
+     back with cv2) and both plots under build/ppo_smoke; per iteration
      the rollout and update times, env-steps/s, losses, KL and overflow;
      losses finite, params moved, 64 launches per iteration in the
      training thread (the kernel's count for that thread, zeroed just
@@ -77,7 +82,10 @@ Phases, each printed with its seconds:
  12. tools: profiling.stage_breakdown at humanoid3d B 2048 (8 rows, the
      kernel launched once per call by the forward, full-step and
      env-step rows only) and profiling.throughput_sweep at B 256, 1024,
-     2048 and 4096
+     2048 and 4096; then the kernel held and timed at B 1, the batch of
+     the rendered paths, once per plan: on the first step with an
+     active row of the h3d walk gate actor (the dashboard, the viewer's
+     policy) and of the extracted G1 run artifact (play, play --video)
  13. gate replays, each in a process of its own (``--replay NAME``),
      all started together (each is host-bound), with mean actions; a
      batch replay reads its alive flags every 50 steps and stops once
@@ -107,6 +115,20 @@ Phases, each printed with its seconds:
      - tools/play.main on data/run_extracted.npz (G1 run, through
        GymDPEnv and the numpy ExtractedPolicy, golden test first) with
        --assert-reward 90, one launch per step
+     - the render paths: the ray tracer built by g++ into
+       build/torch_kernels/librasterizer.so; render_state of humanoid3d
+       and G1 with FK on the card against FK on the CPU path (at most
+       0.1% of the pixels differ, frame std > 20) and its ms per frame at
+       320x240 and 480x480 (median of 5); the viewer's frames from the
+       clip and from the h3d walk gate actor's policy (one launch per
+       policy frame, consecutive frames differ); the eval dashboard of
+       that actor over 60 steps (one launch per step, the best params,
+       the video and plots); play --video of the extracted run artifact
+       over 100 steps; check_debug_log --video of a dump GymDPEnv wrote
+       on the card; retarget of walk into a writable asset root under
+       build/ and validate_clip of it on the card (mean > 0.9; its steps
+       force the state, so the kernel launches 0 times)
+     The play_combined replay renders every 4th step (--video).
 
 Then one JSON line per kernel table, and as the last line the result
 object. Exits non-zero, printing no result, when no CUDA device is
@@ -123,10 +145,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 TOL_KERNEL = 2e-4        # max|d|/scale, tests/test_fused_solve.py
 TOL_STEP = 5e-3          # max|d|/scale, tests/test_fused_solve.py
 TOL_RESUME = 1e-5        # relative, resumed vs continued PPO losses
-# the training CLI at its default widths, two iterations of G1 walk
+# the training CLI at its default widths, two iterations of G1 walk, the
+# first evaluation rendering its dashboard as the CLI's default does
 PPO_ARGV = ["chip smoke", "--env", "deep_mimic_mujoco", "--motion", "walk",
-            "--robot", "unitree_g1", "--no-wandb", "--no-render",
-            "--total", "262144"]
+            "--robot", "unitree_g1", "--no-wandb", "--total", "262144"]
+TOL_PIXELS = 1e-3        # share of pixels, tests/test_torch_render.py
 # the combined gate (tests/test_checkpoint_gates.py:135): the actor,
 # its reward and length bars, the JAX package's replay of it
 COMBINED_GATE = ("combined_r5_best_actor.npz", 100.0, 1900, 154.2)
@@ -187,7 +210,11 @@ PLAY_EXTRACTED_ARGV = ["--checkpoint", os.path.join(
     "--motion", "run", "--robot", "unitree_g1", "--assert-reward", "90"]
 SWEEP_BATCHES = (256, 1024, 2048, 4096)
 REPLAYS = (*GATES, "combined", "rk4", "play_combined", "sac",
-           "play_extracted_run")
+           "play_extracted_run", "render")
+RENDER_DIR = os.path.join(REPO, "build", "render_smoke")
+# the render job: the frames the viewer steps from each source, the
+# dashboard's episode cap and play --video's steps
+VIEW_FRAMES, DASHBOARD_STEPS, PLAY_VIDEO_STEPS = 10, 60, 100
 REPLAY_TIMEOUT = 900
 
 
@@ -320,8 +347,9 @@ def kernel_on_main_path(label, card, args, kw):
         a = r.double().abs()
         typical = r.clone()
         typical[:, 0] += float(a.mean())
-        wrong = {"envs shifted by one": env_scaled_err(r, r.roll(1, 0)),
-                 "mean |entry| added": env_scaled_err(r, typical)}
+        wrong = {"mean |entry| added": env_scaled_err(r, typical)}
+        if B > 1:
+            wrong["envs shifted by one"] = env_scaled_err(r, r.roll(1, 0))
         print(f"  {k}: |ref| max {float(a.max()):.4g} median "
               f"{float(a.median()):.4g} mean {float(a.mean()):.4g}; a "
               f"wrong kernel would read " + ", ".join(
@@ -341,8 +369,8 @@ def kernel_on_main_path(label, card, args, kw):
     plan = fs.launch_plan(nv, 3 * kw["K"] + kw["L"], kw["K"])
     print(f"fused_solve_parts {label} B={B} (plan {plan.tr} x {plan.tc}) on "
           f"{card}: kernel {k1:.4f} / {k2:.4f} ms, plain (build_jt + "
-          f"fused_solve_plain) {p1:.4f} / {p2:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}), {100 * b_ms / k_ms:.1f}% of the bound")
+          f"fused_solve_plain) {p1:.4f} / {p2:.4f} ms, bound {b_ms:.4g} ms "
+          f"({b_by}), {100 * b_ms / k_ms:.3g}% of the bound")
     return dict(max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                 bound_by=b_by)
 
@@ -534,6 +562,8 @@ def replay_job(name):
         res = play_combined_run()
     elif name == "play_extracted_run":
         res = play_extracted_run()
+    elif name == "render":
+        res = render_job()
     else:
         raise ValueError(f"no replay named {name}")
     res["launches"] = fs.fused_solve.launches
@@ -541,19 +571,48 @@ def replay_job(name):
     print("REPLAY_RESULT " + json.dumps(res), flush=True)
 
 
+def render_modules():
+    """{module: present} of what the render paths draw with: cv2
+    (overlay text, mp4) and matplotlib (the dashboard's panel and plots,
+    check_debug_log's plots). A part that needs an absent one is left
+    out, and the run says so."""
+    from deepmimic_mujoco_tpu_torch.rl.train import (
+        RENDER_MODULES, missing_render_modules,
+    )
+
+    missing = missing_render_modules()
+    return {m: m not in missing for m in RENDER_MODULES}
+
+
+def video_frames(path):
+    """Frames cv2 decodes from the mp4 at ``path``."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
 def play_combined_run(device="cuda"):
     """tools/play_combined.main with the combined gate actor and falls
-    injected; returns its reward and cycles, the steps it ran, the
-    physics steps among them and whether the fall -> to_getup -> getup
-    path ran."""
+    injected, and --video where cv2 is present; returns its reward and
+    cycles, the steps it ran, the physics steps among them, whether the
+    fall -> to_getup -> getup path ran, and the video's frames."""
     import contextlib
     import io
 
     from deepmimic_mujoco_tpu_torch.tools import play_combined
 
+    video = os.path.join(RENDER_DIR, "play_combined.mp4")
     argv = ["--checkpoint", os.path.join(
         REPO, "deepmimic_mujoco_tpu_torch", "data", COMBINED_GATE[0]),
         *PLAY_ARGV, "--device", device]
+    if render_modules()["cv2"]:
+        os.makedirs(RENDER_DIR, exist_ok=True)
+        argv += ["--video", video]
     print("python -m deepmimic_mujoco_tpu_torch.tools.play_combined "
           + " ".join(os.path.relpath(a, REPO) if os.path.isabs(a) else a
                      for a in argv))
@@ -570,9 +629,13 @@ def play_combined_run(device="cuda"):
     path_ran = (n_inject >= 1 and "changing to motion: to_getup" in text
                 and "changing to motion: getup"
                 in text.split("injecting fall")[1])
+    frames = video_frames(video) if "--video" in argv else None
+    if frames is not None:
+        check(frames == -(-steps // 4),
+              f"play_combined --video: {frames} frames for {steps} steps")
     return dict(reward=ep_rew, cycles=cycles, steps=steps,
                 injected=n_inject, physics_steps=steps - forced,
-                path_ran=bool(path_ran))
+                path_ran=bool(path_ran), video_frames=frames)
 
 
 def play_extracted_run(device="cuda"):
@@ -600,6 +663,264 @@ def play_extracted_run(device="cuda"):
     return dict(reward=ep_rew,
                 steps=int(re.search(r"over (\d+) steps", text).group(1)),
                 golden="golden-vector test OK" in text)
+
+
+def writable_asset_root(root):
+    """An asset root for retarget's output: symlinks to the vendored
+    root, with the G1 walk clip (the file retarget writes) left out."""
+    import shutil
+
+    from deepmimic_mujoco_tpu_torch.models import assets
+
+    real = assets.asset_root()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "motions"))
+    os.symlink(os.path.join(real, "humanoid_deepmimic"),
+               os.path.join(root, "humanoid_deepmimic"))
+    for f in os.listdir(os.path.join(real, "motions")):
+        if f != "unitree_g1_walk.txt":
+            os.symlink(os.path.join(real, "motions", f),
+                       os.path.join(root, "motions", f))
+    return root
+
+
+def render_job(device="cuda"):
+    """The render paths on the card, in a process of its own beside the
+    replays: the ray tracer built with g++ from the checkout; render_state
+    of humanoid3d and G1 with FK on the card against FK on the CPU path,
+    and its ms per frame; the viewer's frames from the clip and from the
+    h3d walk gate actor; the eval dashboard of that actor; play --video of
+    the extracted G1 run artifact; check_debug_log of a dump GymDPEnv
+    wrote on the card; retarget of walk into a writable asset root and
+    validate_clip. Kernel launches are counted per path (zeroed just
+    before it). Parts that need an absent cv2 or matplotlib are left
+    out, and the result says which. Returns the numbers the parent
+    prints."""
+    import contextlib
+    import io
+    import shutil
+    import statistics
+    import types
+
+    import numpy as np
+    import torch
+
+    from deepmimic_mujoco_tpu_torch import native
+    from deepmimic_mujoco_tpu_torch.envs import DPEnv
+    from deepmimic_mujoco_tpu_torch.envs.gym_wrapper import GymDPEnv
+    from deepmimic_mujoco_tpu_torch.mocap import load_clip
+    from deepmimic_mujoco_tpu_torch.models import assets, load_model
+    from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
+    from deepmimic_mujoco_tpu_torch.rl import checkpoint
+    from deepmimic_mujoco_tpu_torch.rl import eval as rl_eval
+    from deepmimic_mujoco_tpu_torch.rl.convert import actor_from_npz
+    from deepmimic_mujoco_tpu_torch.tools import (
+        check_debug_log, play, retarget,
+    )
+    from deepmimic_mujoco_tpu_torch.tools.render import render_state
+    from deepmimic_mujoco_tpu_torch.tools.view import (
+        Viewer, mocap_source, policy_source,
+    )
+
+    has = render_modules()
+    absent = [m for m, ok in has.items() if not ok]
+    shutil.rmtree(RENDER_DIR, ignore_errors=True)
+    os.makedirs(RENDER_DIR)
+    data = os.path.join(REPO, "deepmimic_mujoco_tpu_torch", "data")
+    res = {"absent": absent, "threads": os.environ.get("OMP_NUM_THREADS")}
+
+    # the ray tracer, built from the checkout's source
+    res["gxx_s"] = native.build(force=True)
+    lib = native.rasterizer_lib()
+    want = os.path.join(REPO, "build", "torch_kernels", "librasterizer.so")
+    check(lib is not None and os.path.realpath(lib._name)
+          == os.path.realpath(want), f"ray tracer library {lib}")
+    print(f"g++ {' '.join(native.GXX_FLAGS)} "
+          f"{os.path.relpath(native.SOURCE, REPO)} -> "
+          f"{os.path.relpath(lib._name, REPO)}: {res['gxx_s']:.2f} s")
+
+    # render_state, FK on the card against FK on the CPU path
+    res["ms_per_frame"], res["pixel_share"] = {}, {}
+    for robot in ("humanoid3d", "unitree_g1"):
+        m = load_model(assets.xml_path(robot))
+        q = (m.key_qpos[0] if robot == "unitree_g1" else load_clip(
+            assets.mocap_path(robot, "walk"), m).qpos[10])
+        card = render_state(m, q, width=320, height=240, device=device)
+        cpu = render_state(m, q, width=320, height=240, device="cpu")
+        share = float((card != cpu).any(-1).mean())
+        print(f"render_state {robot} 320x240, FK on the card vs the CPU "
+              f"path: {100 * share:.4f}% of the pixels differ, frame std "
+              f"{card.std():.2f}")
+        check(share <= TOL_PIXELS and card.std() > 20,
+              f"render_state {robot}: share {share}, std {card.std()}")
+        res["pixel_share"][robot] = share
+        for w, h in ((320, 240), (480, 480)):
+            ts = []
+            for _ in range(5):
+                t = time.perf_counter()
+                render_state(m, q, width=w, height=h, device=device)
+                ts.append((time.perf_counter() - t) * 1e3)
+            res["ms_per_frame"][f"{robot} {w}x{h}"] = statistics.median(ts)
+    print(f"render_state ms per frame (median of 5; FK on the card, the "
+          f"ray tracer on {res['threads']} host thread(s)): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in res["ms_per_frame"].items()))
+
+    # the viewer: frames from the clip, then from the gate actor's policy
+    env = DPEnv(motion="walk", robot="humanoid3d", device=device)
+    net = actor_from_npz(os.path.join(data, "h3d_walk_gate_actor.npz"),
+                         device=device,
+                         generator=torch.Generator(device).manual_seed(0))
+    params = checkpoint.save_params(
+        os.path.join(RENDER_DIR, "h3d_walk_gate.pt"), net)
+    overlay = None if has["cv2"] else (lambda i: "")
+    views = {}
+    for name, src in (("mocap", mocap_source(env)[0]),
+                      ("policy", policy_source(env, params))):
+        v = Viewer(env.model, src, overlay, width=320, height=240,
+                   device=device)
+        fs.fused_solve.launches = 0
+        frames = [v.step_once() for _ in range(VIEW_FRAMES)]
+        views[name] = fs.fused_solve.launches
+        check(all((a != b).any() for a, b in zip(frames, frames[1:])),
+              f"viewer ({name}): consecutive frames are equal")
+    print(f"viewer: {VIEW_FRAMES} frames from the clip ({views['mocap']} "
+          f"kernel launches), {VIEW_FRAMES} from the gate actor's policy "
+          f"({views['policy']} launches)")
+    check(views == {"mocap": 0, "policy": VIEW_FRAMES},
+          f"viewer launches {views}")
+    res["view_policy_launches"] = views["policy"]
+
+    # the eval dashboard of the gate actor
+    dash = has["cv2"] and has["matplotlib"]
+    drawn = []
+    frames_fn = rl_eval.dashboard_frames
+
+    def timed_frames(*a, **k):
+        t = time.perf_counter()
+        out = frames_fn(*a, **k)
+        drawn.append((len(out), time.perf_counter() - t))
+        return out
+
+    rl_eval.dashboard_frames = timed_frames
+    fs.fused_solve.launches = 0
+    try:
+        with torch.no_grad():
+            tr = rl_eval.eval_dashboard_rollout(
+                types.SimpleNamespace(env=env), net, DASHBOARD_STEPS,
+                "render_smoke", out_dir=RENDER_DIR, render=dash,
+                max_steps=DASHBOARD_STEPS)
+    finally:
+        rl_eval.dashboard_frames = frames_fn
+    res["dashboard_launches"] = fs.fused_solve.launches
+    res["dashboard_len"] = tr["ep_len"]
+    vdir = os.path.join(RENDER_DIR, "render_smoke_videos")
+    check(os.path.exists(os.path.join(vdir, "render_smoke_best.pt"))
+          and os.path.exists(os.path.join(vdir, "log.csv")),
+          "the dashboard wrote no best params or log")
+    check(res["dashboard_launches"] == tr["ep_len"],
+          f"dashboard: {res['dashboard_launches']} launches in "
+          f"{tr['ep_len']} steps")
+    res["dashboard_ms_per_frame"] = None
+    if dash:
+        n, secs = drawn[0]
+        res["dashboard_ms_per_frame"] = secs * 1e3 / n
+        got = video_frames(os.path.join(
+            vdir, f"global_step_{DASHBOARD_STEPS}.mp4"))
+        check(got == n and n >= 1, f"dashboard video: {got} of {n} frames")
+        check(all(os.path.getsize(os.path.join(vdir, f)) > 0
+                  for f in ("rew_plot.png", "len_plot.png")),
+              "the dashboard's plots")
+    print(f"eval dashboard of the gate actor: {tr['ep_len']} steps, reward "
+          f"{tr['ep_rew']:.2f}, {res['dashboard_launches']} kernel launches; "
+          + (f"{drawn[0][0]} frames at {res['dashboard_ms_per_frame']:.1f} "
+             "ms each (render_state 320x240 + the 2x2 panel)" if dash else
+             f"video and plots left out ({', '.join(absent)} absent)"))
+
+    # play --video of the extracted G1 run artifact
+    video = os.path.join(RENDER_DIR, "play.mp4")
+    argv = ["--checkpoint", os.path.join(data, "run_extracted.npz"),
+            "--motion", "run", "--robot", "unitree_g1", "--max-steps",
+            str(PLAY_VIDEO_STEPS), "--device", device]
+    if has["cv2"]:
+        argv += ["--video", video]
+    log = io.StringIO()
+    fs.fused_solve.launches = 0
+    with contextlib.redirect_stdout(log):
+        ep_rew = play.main(argv)
+    res["play_launches"] = fs.fused_solve.launches
+    steps = int(re.search(r"over (\d+) steps", log.getvalue()).group(1))
+    res["play_steps"], res["play_reward"] = steps, ep_rew
+    res["play_frames"] = video_frames(video) if has["cv2"] else None
+    shown = " ".join(os.path.relpath(a, REPO) if os.path.isabs(a) else a
+                     for a in argv)
+    print(f"python -m deepmimic_mujoco_tpu_torch.tools.play {shown}: "
+          f"reward {ep_rew:.2f} over {steps} steps, {res['play_launches']} "
+          f"kernel launches, video frames {res['play_frames']}")
+    check(res["play_launches"] == steps, "play --video launches")
+    check(not has["cv2"] or res["play_frames"] == -(-steps // 2),
+          f"play --video: {res['play_frames']} frames for {steps} steps")
+
+    # check_debug_log of a dump GymDPEnv writes on the card
+    g = GymDPEnv(motion="walk", robot="humanoid3d", device=device,
+                 crash_dump_dir=RENDER_DIR)
+    g.reset()
+    g.reset_model(idx_init=3)
+    zero = np.zeros(g.env.action_size)
+    with contextlib.redirect_stdout(io.StringIO()):
+        for _ in range(3):
+            g.step(zero)
+        _, _, done, info = g.step(zero, force_state=(
+            g.mocap.qpos[6], np.full(g.model.nv, 1e6)))
+    check(done and info.get("done_reason") == "obs_out_of_bounds",
+          f"no divergence dump: {info}")
+    (dump,) = [os.path.join(RENDER_DIR, f) for f in os.listdir(RENDER_DIR)
+               if f.startswith("deepmimic_episode_")]
+    video = os.path.join(RENDER_DIR, "debug_log.mp4")
+    if has["matplotlib"]:
+        check_debug_log.main([dump, "--video", video, "--plot", os.path.join(
+            RENDER_DIR, "debug_log.png"), "--device", device])
+    elif has["cv2"]:
+        check_debug_log.dump_video(check_debug_log.load_dump(dump), video,
+                                   device)
+    if has["cv2"]:
+        res["debug_log_frames"] = video_frames(video)
+        check(res["debug_log_frames"] == 2,
+              f"check_debug_log video: {res['debug_log_frames']} frames")
+
+    # retarget walk into a writable asset root, then validate_clip
+    root = writable_asset_root(os.path.join(REPO, "build", "retarget_smoke"))
+    before = os.environ.get("DM_TPU_ASSET_ROOT")
+    os.environ["DM_TPU_ASSET_ROOT"] = root
+    try:
+        t = time.perf_counter()
+        out = retarget.retarget_motion_humanoid_to_unitree_g1(
+            "walk", validate=False)
+        res["retarget_s"] = time.perf_counter() - t
+        check(os.path.dirname(out) == os.path.join(root, "motions"),
+              f"retarget wrote {out}")
+        try:
+            retarget.retarget_motion_humanoid_to_unitree_g1(
+                "walk", validate=False)
+            check(False, "retarget overwrote its clip")
+        except FileExistsError:
+            pass
+        fs.fused_solve.launches = 0
+        rews = retarget.validate_clip("walk", device=device)
+        res["validate_launches"] = fs.fused_solve.launches
+    finally:
+        if before is None:
+            del os.environ["DM_TPU_ASSET_ROOT"]
+        else:
+            os.environ["DM_TPU_ASSET_ROOT"] = before
+    res["validate_mean"], res["validate_steps"] = float(rews.mean()), len(rews)
+    print(f"retarget walk -> {os.path.relpath(out, REPO)} in "
+          f"{res['retarget_s']:.2f} s; validate_clip on the card: mean "
+          f"{rews.mean():.4f}, min {rews.min():.4f} over {len(rews)} "
+          f"force-state steps, {res['validate_launches']} kernel launches "
+          "(no dynamics run)")
+    check(rews.mean() > 0.9, f"validate_clip mean {rews.mean()}")
+    check(res["validate_launches"] == 0, "validate_clip launched the kernel")
+    return res
 
 
 def run_replays(card, names, timeout):
@@ -1084,6 +1405,14 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {kind}")
+    has = render_modules()
+    absent = [m for m, ok in has.items() if not ok]
+    print("render modules: " + ", ".join(
+        f"{m} {'present' if ok else 'ABSENT'}" for m, ok in has.items())
+        + (f"; without {' and '.join(absent)} the parts that draw with it "
+           "are left out (the dashboard's panel and plots need matplotlib; "
+           "overlays and videos need cv2) and are held by the CPU tests "
+           "only" if absent else ""))
     done(t0, "card")
 
     # ---- 1. build -----------------------------------------------------------
@@ -1283,8 +1612,31 @@ def main():
 
     # ---- 5. PPO training ---------------------------------------------------
     t0 = phase("PPO training")
-    ppo_launches, eval_launches, _ = ppo_training(card, dev, PPO_ARGV,
-                                                  "ppo_smoke", env=g1)
+    import glob
+    import shutil
+
+    dashboard = not absent
+    ppo_dir = os.path.join(REPO, "build", "ppo_smoke")
+    shutil.rmtree(ppo_dir, ignore_errors=True)
+    if not dashboard:
+        print(f"PPO training with --no-render: the dashboard needs "
+              f"{' and '.join(absent)}")
+    ppo_launches, eval_launches, _ = ppo_training(
+        card, dev, PPO_ARGV if dashboard else [*PPO_ARGV, "--no-render"],
+        "ppo_smoke", env=g1)
+    if dashboard:
+        videos = glob.glob(os.path.join(ppo_dir, "*_videos",
+                                        "global_step_*.mp4"))
+        plots = glob.glob(os.path.join(ppo_dir, "*_videos", "*_plot.png"))
+        n_frames = [video_frames(v) for v in videos]
+        print(f"eval dashboard under build/ppo_smoke: "
+              + ", ".join(f"{os.path.basename(v)} ({n} frames)"
+                          for v, n in zip(videos, n_frames))
+              + "; " + ", ".join(sorted(os.path.basename(p) for p in plots)))
+        check(videos and all(n >= 1 for n in n_frames),
+              f"dashboard videos {videos} with {n_frames} frames")
+        check(sorted(os.path.basename(p) for p in plots)
+              == ["len_plot.png", "rew_plot.png"], f"dashboard plots {plots}")
     done(t0, "PPO training")
 
     # ---- 6. combined main path -------------------------------------------
@@ -1409,13 +1761,49 @@ def main():
     sweep = profiling.throughput_sweep(env, SWEEP_BATCHES)
     print("  batch | env-steps/s\n" + "\n".join(
         f"  {b:5d} | {sps:.1f}" for b, sps in sweep))
-    del env
+    # the kernel at B 1, the batch of the rendered paths of phase 13, held
+    # once per plan: h3d (the dashboard's episode and the viewer's policy:
+    # the h3d walk gate actor) and G1 (play and play --video: the
+    # extracted run artifact), each from frame 20 on its first step with
+    # an active constraint row (the start poses touch nothing at first)
+    import numpy as np
+
+    from deepmimic_mujoco_tpu_torch.envs import DPEnv
+    from deepmimic_mujoco_tpu_torch.rl.convert import actor_from_npz
+    from deepmimic_mujoco_tpu_torch.rl.extracted_policy import (
+        ExtractedPolicy,
+    )
+
+    data = os.path.join(REPO, "deepmimic_mujoco_tpu_torch", "data")
+    gate_actor = actor_from_npz(os.path.join(data, DISTILL_TEACHER),
+                                device=dev)
+    extracted = ExtractedPolicy(os.path.join(data, "run_extracted.npz"))
+    g1_env = DPEnv(motion="run", robot="unitree_g1", device=dev)
+    b1 = {}
+    for name, b1_env, policy in (
+            ("h3d_b1", env, lambda o: gate_actor(o)[0]),
+            ("g1_b1", g1_env, lambda o: torch.as_tensor(np.asarray(
+                extracted.act(o[0].cpu().numpy()), np.float32),
+                device=dev)[None])):
+        with torch.no_grad():
+            state, obs = b1_env.reset(1, idx_init=20)
+            for step in range(50):
+                action = policy(obs)
+                args, kw = capture_parts(b1_env, state, action)
+                if bool(args[-3].any()):       # the active mask
+                    break
+                state, out = b1_env.step(state, action)
+                obs = out.obs
+            check(bool(args[-3].any()),
+                  f"{name}: no active constraint in 50 steps")
+        b1[name] = dict(kernel_on_main_path(
+            f"{name} (rendered paths; step {step})", card, args, kw),
+            step=step)
+    del env, g1_env
     done(t0, "tools")
 
     # ---- 13. gate replays -------------------------------------------------
     t0 = phase("gate replays")
-    import numpy as np
-
     res = run_replays(card, REPLAYS, REPLAY_TIMEOUT)
     for name, (_, motion, robot, idx0, gate, jax_rew) in GATES.items():
         r = res[name]
@@ -1466,7 +1854,9 @@ def main():
     print(f"play_combined on {card}: reward {r['reward']:.2f} over "
           f"{r['steps']} steps, {r['injected']} fall(s) injected, recovery "
           f"cycles {r['cycles']}; {r['launches']} kernel launches for "
-          f"{r['physics_steps']} physics steps")
+          f"{r['physics_steps']} physics steps; --video "
+          + (f"{r['video_frames']} frames" if r["video_frames"] is not None
+             else "left out (cv2 absent)"))
     check(r["path_ran"], "the fall -> to_getup -> getup path did not run")
     check(r["launches"] == r["physics_steps"],
           f"play_combined: {r['launches']} launches for "
@@ -1494,6 +1884,25 @@ def main():
           f"play of the extracted run artifact: {r}")
     check(r["launches"] == r["steps"],
           f"play: {r['launches']} launches in {r['steps']} steps")
+    r = rend = res["render"]
+    print(f"render job on {card} (ray tracer on {r['threads']} host "
+          f"thread(s), beside the replays): g++ {r['gxx_s']:.2f} s; "
+          f"render_state card vs CPU FK, pixels differing: " + ", ".join(
+              f"{k} {100 * v:.4f}%" for k, v in r["pixel_share"].items())
+          + "; ms per frame: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in r["ms_per_frame"].items()))
+    print(f"  viewer from the policy: {r['view_policy_launches']} launches "
+          f"in {VIEW_FRAMES} frames; eval dashboard: "
+          f"{r['dashboard_launches']} launches in {r['dashboard_len']} "
+          f"steps, " + (f"{r['dashboard_ms_per_frame']:.1f} ms per "
+                        "dashboard frame" if r["dashboard_ms_per_frame"]
+                        else "no video (" + ", ".join(r["absent"])
+                        + " absent)")
+          + f"; play --video: {r['play_launches']} launches in "
+          f"{r['play_steps']} steps, reward {r['play_reward']:.2f}, "
+          f"{r['play_frames']} frames; validate_clip of the retargeted walk: "
+          f"mean {r['validate_mean']:.4f} over {r['validate_steps']} steps, "
+          f"{r['validate_launches']} launches")
     done(t0, "gate replays")
 
     kernels = [{
@@ -1521,7 +1930,26 @@ def main():
                          "reward": res["sac"]["rewards"][0]},
             "play_extracted": {
                 "launches": res["play_extracted_run"]["launches"],
-                "reward": res["play_extracted_run"]["reward"]},
+                "reward": res["play_extracted_run"]["reward"],
+                "held_at": "g1_b1"},
+            # the kernel at B 1, held and timed in phase 12 once per plan;
+            # each path at B 1 names the hold of its plan
+            **b1,
+            "eval_dashboard": {"launches": rend["dashboard_launches"],
+                               "steps": rend["dashboard_len"],
+                               "ms_per_frame":
+                                   rend["dashboard_ms_per_frame"],
+                               "held_at": "h3d_b1"},
+            "view_policy": {"launches": rend["view_policy_launches"],
+                            "frames": VIEW_FRAMES, "held_at": "h3d_b1"},
+            "play_video": {"launches": rend["play_launches"],
+                           "steps": rend["play_steps"],
+                           "frames": rend["play_frames"],
+                           "reward": rend["play_reward"],
+                           "held_at": "g1_b1"},
+            "validate_clip": {"launches": rend["validate_launches"],
+                              "steps": rend["validate_steps"],
+                              "mean_reward": rend["validate_mean"]},
             "throughput_sweep": {str(b): sps for b, sps in sweep},
             "h3d_walk_b2048": {"launches": h3d_launches, **h3d_k,
                                "regs": info["h3d"]["regs"],

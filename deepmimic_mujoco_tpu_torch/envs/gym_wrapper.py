@@ -10,7 +10,8 @@ crash dump on divergence (src/deepmimic_env.py:366-378, :457-476).
 
 These wrappers are for interactive use, playback and tools (one host
 round trip a step); training runs on the batched functional API.
-Rendering is not ported yet: ``render`` raises.
+``render`` draws the state with ``tools/render.py`` (FK on the env's
+device, the ray tracer on the host), with the JAX package's overlays.
 """
 from __future__ import annotations
 
@@ -27,10 +28,6 @@ from deepmimic_mujoco_tpu_torch.envs.combined_env import (
     DONE_FALLEN_NO_AMNESTY, MOTION_NAMES, DPCombinedEnv,
 )
 from deepmimic_mujoco_tpu_torch.envs.dp_env import DONE_REASON_NAMES, DPEnv
-
-RENDER_TODO = ("rendering waits for the render port (ROADMAP Queue 1 "
-               "item 7)")
-
 
 class Box(NamedTuple):
     low: np.ndarray
@@ -80,8 +77,11 @@ class _Single:
         return (int(self._state.episode_length[0])
                 if self._state is not None else 0)
 
-    def render(self, mode=None):
-        raise NotImplementedError(RENDER_TODO)
+    def _render(self, mode, overlay):
+        from deepmimic_mujoco_tpu_torch.tools.render import render_state
+
+        return render_state(self.model, self._state.qpos[0], mode=mode,
+                            overlay=overlay, device=self.env.device)
 
     def close(self):
         pass
@@ -171,6 +171,10 @@ class GymDPEnv(_Single):
     def get_time(self):
         return self.episode_length * self.env.engine.dt
 
+    def render(self, mode=None):
+        return self._render(mode, f"{self.episode_length:>5} "
+                                  f"{self.episode_reward:>7.2f}")
+
     # ---- crash forensics -------------------------------------------------
     def _write_crash_dump(self, message):
         path = os.path.join(self.crash_dump_dir, "deepmimic_episode_{}.json"
@@ -229,3 +233,8 @@ class GymDPCombinedEnv(_Single):
             info["done_reason"] = reason
         return (out.obs[0].cpu().numpy(), float(out.reward[0]),
                 bool(out.done[0]), info)
+
+    def render(self, mode=None):
+        return self._render(mode, f"{self.current_motion_name[-8:]} "
+                                  f"{self.episode_length:>5} "
+                                  f"{self.episode_reward:>7.2f}")

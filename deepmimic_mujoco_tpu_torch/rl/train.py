@@ -9,11 +9,10 @@ A failed evaluation does not stop training, but ``main`` raises it once
 the final checkpoint is saved.
 Thousands of envs step as one batch on the card (``--device``, default
 cuda). The default ``--env`` is the combined walk/run/getup env, with
-its handoff and facedown options; ``--rk4`` trains under RK4.
-
-Not ported yet, and refused with NotImplementedError: the eval
-dashboard's video, which needs ``--no-render`` until the render port
-(ROADMAP Queue 1 item 7).
+its handoff and facedown options; ``--rk4`` trains under RK4. Every 5th
+evaluation writes the eval dashboard's video and plots (cv2 and
+matplotlib, checked before training starts); ``--no-render`` turns them
+off.
 """
 from __future__ import annotations
 
@@ -126,16 +125,25 @@ def parse_reason(argv=None, required=True):
     return args
 
 
-def _refuse_unported(args):
-    if not args.no_render:
-        raise NotImplementedError(
-            "the eval dashboard's video waits for the render port (ROADMAP "
-            "Queue 1 item 7); pass --no-render")
+# what the eval dashboard draws with: cv2 (overlay text, the mp4) and
+# matplotlib (the panel and the plots)
+RENDER_MODULES = ("cv2", "matplotlib")
+
+
+def missing_render_modules() -> list:
+    """The modules of ``RENDER_MODULES`` that this Python lacks."""
+    import importlib.util
+
+    return [m for m in RENDER_MODULES if importlib.util.find_spec(m) is None]
 
 
 def main(argv=None):
     args = parse_reason(argv)
-    _refuse_unported(args)
+    missing = [] if args.no_render else missing_render_modules()
+    if missing:
+        # before any training: a failed evaluation is raised only at the end
+        raise ImportError(f"the eval dashboard needs {' and '.join(missing)}"
+                          ", which this Python lacks; pass --no-render")
 
     import torch
 
@@ -232,7 +240,9 @@ def main(argv=None):
             wandb_run.log(d)
 
     evaluator = ThreadedEvaluator(ppo, args.motion + "_" + run_name,
-                                  out_dir=args.out, metrics_cb=log_metrics)
+                                  out_dir=args.out,
+                                  render=not args.no_render,
+                                  metrics_cb=log_metrics)
     steps_per_iter = cfg.n_envs * cfg.horizon
     eval_every_iters = max(args.eval_every // steps_per_iter, 1)
 
@@ -259,7 +269,11 @@ def main(argv=None):
             "contact_overflow_max": int(stats.contact_overflow_max),
         })
         if it % eval_every_iters == 0:
-            evaluator.queue_eval(ts.net, gstep)
+            # dashboard videos only every 5th eval: matplotlib holds the
+            # GIL long enough to slow the training loop
+            render = (not args.no_render) and \
+                (it // eval_every_iters) % 5 == 0
+            evaluator.queue_eval(ts.net, gstep, render=render)
 
     print("Begin Learn")
     print("-----------")

@@ -12,7 +12,8 @@ A ``.npz`` checkpoint runs through the numpy ``ExtractedPolicy``, its
 golden-vector self-test first: the extracted artifacts and the
 ``data/*_gate_actor.npz`` files share the ``w0..bN`` keys. Any other
 path is the port's params file (``rl/checkpoint.py:save_params``) of a
-``--policy`` net. ``--video`` waits for the render port.
+``--policy`` net. ``--video out.mp4`` renders every 2nd step
+(``GymDPEnv.render``: FK on the card, the ray tracer on the host).
 
 Usage:
   python -m deepmimic_mujoco_tpu_torch.tools.play --motion run \\
@@ -24,7 +25,7 @@ import argparse
 
 import numpy as np
 
-from deepmimic_mujoco_tpu_torch.envs.gym_wrapper import RENDER_TODO, GymDPEnv
+from deepmimic_mujoco_tpu_torch.envs.gym_wrapper import GymDPEnv
 
 
 def log_actobs(step_i, action, obs):
@@ -87,8 +88,6 @@ def main(argv=None):
     p.add_argument("--rk4", action="store_true")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.video:
-        raise NotImplementedError("--video: " + RENDER_TODO)
 
     from deepmimic_mujoco_tpu_torch.models.physics_model import RK4
 
@@ -110,6 +109,7 @@ def main(argv=None):
     else:
         policy = load_policy(args.checkpoint, args.policy, env)
 
+    frames = []
     ep_rew = 0.0
     for i in range(args.max_steps):
         a = policy(obs)
@@ -117,11 +117,17 @@ def main(argv=None):
             log_actobs(i, a, obs)
         obs, r, done, info = env.step(a)
         ep_rew += r
+        if args.video and i % 2 == 0:
+            frames.append(env.render(mode="rgb_array"))
         if done:
             print("done_reason:", info.get("done_reason", ""))
             break
 
     print(f"Episode reward: {ep_rew:.2f} over {env.episode_length} steps")
+    if args.video and frames:
+        from deepmimic_mujoco_tpu_torch.tools.render import frames_to_video
+
+        print("Saved", frames_to_video(frames, args.video))
     if args.assert_reward is not None:
         if not ep_rew > args.assert_reward:
             raise AssertionError(f"Regression gate failed: {ep_rew:.2f} <= "

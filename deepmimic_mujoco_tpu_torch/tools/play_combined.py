@@ -11,7 +11,9 @@ locomotion with amnesty earned, driving the fallen -> to_getup -> getup
 -> walk|run path. A recovery cycle counts only when the robot is up
 (root z > 0.5) at the getup -> locomotion switch, which fires on a timer
 (the rule of tests/test_checkpoint_gates.py); ``--assert-cycles K``
-turns the run into a regression gate.
+turns the run into a regression gate. ``--video out.mp4`` renders
+every 4th step with the motion's name, the step and the reward drawn on
+it (FK on the card, the ray tracer on the host).
 
 Usage: python -m deepmimic_mujoco_tpu_torch.tools.play_combined
            [--checkpoint actor.npz] [--steps 2000] [--device cuda]
@@ -73,9 +75,6 @@ def main(argv=None):
                         "recovery cycles")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.video:
-        raise NotImplementedError(
-            "--video waits for the render port (ROADMAP Queue 1 item 7)")
 
     import torch
 
@@ -98,6 +97,7 @@ def main(argv=None):
     fall = (env.mocap_qpos[GETUP, :1], torch.zeros_like(
         env.mocap_qvel[GETUP, :1]))
     counter = CycleCounter()
+    frames = []
     ep_rew = 0.0
     inject_armed = False
     with torch.no_grad():
@@ -139,11 +139,24 @@ def main(argv=None):
                     print(f"step {i}: getup timer expired NOT up (root z "
                           f"{z:.2f}): not counted as a recovery")
                 last_motion = mid
+            if args.video and i % 4 == 0:
+                from deepmimic_mujoco_tpu_torch.tools.render import (
+                    render_state,
+                )
+
+                frames.append(render_state(
+                    env.model, state.qpos[0], mode="rgb_array",
+                    overlay=f"{MOTION_NAMES[mid][-8:]} {i:>5} {ep_rew:>8.2f}",
+                    device=dev))
             if bool(out.done[0]):
                 print("done at", i, "reason code", int(out.done_reason[0]))
                 break
     cycles = counter.cycles
     print(f"Episode reward: {ep_rew:.2f}  recovery cycles: {cycles}")
+    if args.video and frames:
+        from deepmimic_mujoco_tpu_torch.tools.render import frames_to_video
+
+        print("Saved", frames_to_video(frames, args.video))
     if args.assert_cycles and cycles < args.assert_cycles:
         # SystemExit, not assert: the gate must survive python -O
         raise SystemExit(

@@ -315,15 +315,24 @@ def test_cycle_counter_follows_the_gate_rule():
     assert max(got) >= 1
 
 
-def test_play_combined_runs_a_few_steps(capsys):
+def test_play_combined_runs_a_few_steps(capsys, tmp_path):
+    import cv2
+
+    video = tmp_path / "combined.mp4"
     ep_rew, cycles = play_combined.main([
         "--checkpoint", COMBINED_NPZ, "--steps", "12", "--warmstart", "4",
-        "--inject-fall-every", "4", "--device", "cpu"])
+        "--inject-fall-every", "4", "--device", "cpu", "--video",
+        str(video)])
     out = capsys.readouterr().out
     assert np.isfinite(ep_rew) and ep_rew > 0 and cycles == 0
     assert "injecting fall" in out and "changing to motion: to_getup" in out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        play_combined.main(["--video", "x.mp4", "--device", "cpu"])
+    # every 4th of the 12 steps rendered, with the motion overlay
+    assert "done at" not in out and f"Saved {video}" in out
+    cap = cv2.VideoCapture(str(video))
+    assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 3
+    ok, frame = cap.read()
+    cap.release()
+    assert ok and frame.shape == (480, 480, 3) and frame.std() > 20
 
 
 def test_combined_npz_matches_orbax_checkpoint():

@@ -462,6 +462,51 @@ def test_stage_breakdown_on_card(cuda_device):
     assert all(ms > 0 for _, ms, _, _ in rows)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("robot", ["humanoid3d", "unitree_g1"])
+def test_render_state_on_card_matches_cpu(cuda_device, robot):
+    """render_state with FK on the card against FK on the CPU path (the
+    same ray tracer): at most 0.1% of the pixels differ."""
+    from deepmimic_mujoco_tpu_torch.mocap import load_clip
+    from deepmimic_mujoco_tpu_torch.models import assets, load_model
+    from deepmimic_mujoco_tpu_torch.tools.render import render_state
+
+    m = load_model(assets.xml_path(robot))
+    q = (m.key_qpos[0] if robot == "unitree_g1" else load_clip(
+        assets.mocap_path(robot, "walk"), m).qpos[10])
+    card, cpu = (render_state(m, q, width=320, height=240, device=d)
+                 for d in (cuda_device, "cpu"))
+    assert card.shape == (240, 320, 3) and card.std() > 20
+    assert (card != cpu).any(-1).mean() <= 1e-3
+
+
+@pytest.mark.gpu
+def test_cli_renders_dashboard_on_card(cuda_device, tmp_path, monkeypatch):
+    """One tiny training iteration of the CLI without --no-render on the
+    card: the first evaluation writes its dashboard video and both
+    plots. Needs cv2 and matplotlib (the CLI checks for both)."""
+    import functools
+    import glob
+    import os
+
+    pytest.importorskip("cv2")
+    pytest.importorskip("matplotlib")
+    from deepmimic_mujoco_tpu_torch.rl import eval as rl_eval
+    from deepmimic_mujoco_tpu_torch.rl.train import main
+
+    monkeypatch.setattr(rl_eval, "eval_dashboard_rollout", functools.partial(
+        rl_eval.eval_dashboard_rollout, max_steps=8))
+    ts = main(["card", "--env", "deep_mimic_mujoco", "--robot", "humanoid3d",
+               "--n-envs", "8", "--horizon", "4", "--minibatch", "16",
+               "--epochs", "1", "--total", "32", "--no-wandb", "--out",
+               str(tmp_path)])
+    assert ts.global_step == 32 and ts.last_obs.is_cuda
+    (videos,) = glob.glob(str(tmp_path / "*_videos"))
+    assert glob.glob(os.path.join(videos, "global_step_*.mp4"))
+    for name in ("rew_plot.png", "len_plot.png"):
+        assert os.path.getsize(os.path.join(videos, name)) > 0
+
+
 def test_check_fits_names_the_limit():
     """The error an engine on the card raises when no compiled plan holds
     its solve names the largest max_contacts that fits (runs anywhere)."""

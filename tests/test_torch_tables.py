@@ -212,7 +212,9 @@ def test_port_imports_no_jax_side_module():
                 "physics/step.py", "physics/sensors.py",
                 "tools/play_combined.py", "rl/sac.py", "rl/sac_train.py",
                 "rl/extracted_policy.py", "envs/gym_wrapper.py",
-                "tools/play.py", "tools/probe.py", "tools/profiling.py"):
+                "tools/play.py", "tools/probe.py", "tools/profiling.py",
+                "native/__init__.py", "tools/render.py", "tools/view.py",
+                "tools/check_debug_log.py", "tools/retarget.py"):
         assert mod in scanned, mod
     bad = []
     for path in srcs:
@@ -238,7 +240,10 @@ def test_port_imports_no_jax_side_module():
 def test_port_copies_no_asset():
     files = [p for p in _port_files() if "__pycache__" not in p]
     exts = {os.path.splitext(p)[1] for p in files}
-    assert exts <= {".py", ".cu", ".npz", ".json"}, exts
+    assert exts <= {".py", ".cu", ".cpp", ".npz", ".json"}, exts
+    # the only C++ is the ray tracer's source
+    assert [os.path.relpath(p, _PORT) for p in files
+            if p.endswith(".cpp")] == ["native/rasterizer.cpp"]
     # the only JSON is an extracted policy's golden vector
     assert all(p.endswith("_golden.json") for p in files
                if p.endswith(".json"))

@@ -10,11 +10,15 @@
   (max|d| / max(max|ref|, 1), the end-to-end tolerance of a step through
   the solve, tests/test_torch_env.py), reward and every ``info`` value
   to 5e-3 absolute, done and done_reason equal; a crash dump from a
-  forced divergent state has the JAX dump's keys.
+  forced divergent state has the JAX dump's keys; ``render()`` after the
+  steps differs from the JAX wrapper's frame in at most 0.1% of its
+  pixels (the two states agree within the step tolerance above, which
+  moves a few edge pixels).
 - ``GymDPCombinedEnv``: one step from the JAX wrapper's reset state,
-  the same tolerances.
+  the same tolerances, and ``render()`` as above.
 - ``play.main`` at ``--max-steps 5`` with the extracted run artifact on
-  the CPU (golden test first); ``--video`` raises.
+  the CPU (golden test first); ``--video`` writes an mp4 of every 2nd
+  step.
 - ``probe`` rows against the JAX ``probe`` for one start over 5 steps
   (ep_len and reason equal, ep_rew, dx and z to 5e-3 absolute).
 - ``stage_breakdown`` at batch 4: 8 non-negative rows; the solve, PPO
@@ -30,6 +34,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import deepmimic_mujoco_tpu.native as jnative
 from deepmimic_mujoco_tpu.envs import GymDPEnv as JGym
 from deepmimic_mujoco_tpu.rl import networks as jnet
 
@@ -46,6 +51,38 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(_REPO, "deepmimic_mujoco_tpu_torch", "data")
 TOL = 5e-3
 N_STEPS = 3
+MAX_DIFF_SHARE = 1e-3   # share of a frame's pixels
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_rasterizer(tmp_path_factory):
+    """The JAX package's ray tracer built by its own builder into a
+    temporary file, so no test writes its tracked library."""
+    so, lib = jnative._SO, jnative._lib
+    if lib is None:
+        jnative._SO = str(tmp_path_factory.mktemp("jax_native")
+                          / "librasterizer.so")
+    yield
+    jnative._SO, jnative._lib = so, lib
+
+
+def _same_frame(jg, tg):
+    want, got = jg.render(mode="rgb_array"), tg.render(mode="rgb_array")
+    assert got.shape == want.shape == (480, 480, 3)
+    share = (got != want).any(-1).mean()
+    assert share <= MAX_DIFF_SHARE, share
+    assert got.std() > 20
+
+
+def _frame_count(path):
+    import cv2
+
+    cap = cv2.VideoCapture(str(path))
+    n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    ok, frame = cap.read()
+    cap.release()
+    assert ok and frame.std() > 0
+    return n
 
 
 def _scaled(a, b):
@@ -159,12 +196,11 @@ def test_gym_env_matches_jax(gyms):
     assert tg.get_time() == pytest.approx(jg.get_time())
     assert _scaled(jg.sim_qpos, tg.sim_qpos) < TOL
     assert len(tg.episode_debug_log["qpos"]) == N_STEPS
+    _same_frame(jg, tg)
     tg.goto(tg.mocap.qpos[5])
     np.testing.assert_array_equal(tg.sim_qpos,
                                   tg.mocap.qpos[5].astype(np.float32))
     assert not tg.sim_qvel.any()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tg.render()
 
 
 def test_gym_env_crash_dump_matches_jax(gyms, tmp_path):
@@ -211,11 +247,10 @@ def test_gym_combined_env_step_matches_jax():
     a = np.random.RandomState(4).uniform(-0.3, 0.3, tg.env.action_size)
     _step_both(jg, tg, a)
     assert tg.episode_length == 1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tg.render()
+    _same_frame(jg, tg)
 
 
-def test_play_extracted_on_cpu(capsys):
+def test_play_extracted_on_cpu(capsys, tmp_path):
     from deepmimic_mujoco_tpu_torch.tools import play
 
     rew = play.main(["--checkpoint", os.path.join(DATA, "run_extracted.npz"),
@@ -231,8 +266,13 @@ def test_play_extracted_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "zero-torque" in out and "// step 1" in out
     assert "over 2 steps" in out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        play.main(["--video", "x.mp4", "--device", "cpu"])
+    # --video: every 2nd of the 5 steps rendered into the mp4
+    video = tmp_path / "play.mp4"
+    play.main(["--video", str(video), "--max-steps", "5", "--device",
+               "cpu"])
+    out = capsys.readouterr().out
+    assert "over 5 steps" in out and f"Saved {video}" in out
+    assert _frame_count(video) == 3
     with pytest.raises(AssertionError, match="Regression gate failed"):
         play.main(["--max-steps", "2", "--device", "cpu",
                    "--assert-reward", "100"])

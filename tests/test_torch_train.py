@@ -7,6 +7,7 @@ evaluation episode and the training CLI at a tiny size on the CPU.
 """
 import glob
 import json
+import os
 
 import numpy as np
 import pytest
@@ -268,26 +269,38 @@ def test_cli_raises_failed_evals(tmp_path, monkeypatch):
     assert glob.glob(str(tmp_path / "test*.pt"))
 
 
-def test_cli_guards():
-    from deepmimic_mujoco_tpu_torch.rl.train import _refuse_unported
+def test_cli_guards(tmp_path, monkeypatch):
+    import importlib.util
 
     with pytest.raises(ValueError, match="reason"):
         parse_reason([])
     assert parse_reason(["--no-wandb"]).no_wandb
     assert parse_reason(["why"]).device == "cuda"
-    # the default combined env, its flags and --rk4 run now (trained at a
-    # tiny size in tests/test_torch_combined_train.py); only rendering
-    # is refused
+    # the default combined env, its flags and --rk4 parse with rendering
+    # on (they train at a tiny size in tests/test_torch_combined_train.py)
     for extra in ([], ["--rk4"], ["--facedown-rsi", "0.1"],
                   ["--handoff-buffer", "0.2"], ["--handoff-rsi", "0.3"],
                   ["--rsi-random-pa"], ["--handoff-buffer-cap", "8"]):
-        args = parse_reason(["why", "--no-wandb", "--no-render", *extra])
-        assert args.env == "dp_combined_env"
-        _refuse_unported(args)
+        args = parse_reason(["why", "--no-wandb", *extra])
+        assert args.env == "dp_combined_env" and not args.no_render
     assert parse_reason(["why", "--handoff-buffer-cap", "8"]
                         ).handoff_buffer_cap == 8
-    with pytest.raises(NotImplementedError, match="render"):
-        main(["why", "--no-wandb"])          # the default combined env
-    with pytest.raises(NotImplementedError, match="render"):
+    # the default invocation renders: a tiny CPU run without --no-render
+    # writes the first evaluation's dashboard video and both plots
+    ts = main(["why", "--env", "deep_mimic_mujoco", "--motion", "walk",
+               "--robot", "humanoid3d", "--n-envs", "4", "--horizon", "4",
+               "--minibatch", "8", "--epochs", "1", "--total", "32",
+               "--no-wandb", "--device", "cpu", "--out", str(tmp_path)])
+    assert ts.global_step == 32
+    (videos,) = glob.glob(str(tmp_path / "*_videos"))
+    assert glob.glob(os.path.join(videos, "global_step_*.mp4"))
+    for name in ("rew_plot.png", "len_plot.png", "log.csv"):
+        assert os.path.getsize(os.path.join(videos, name)) > 0, name
+    # where matplotlib is absent, it stops before training and says so
+    find_spec = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec", lambda name, *a: (
+        None if name == "matplotlib" else find_spec(name, *a)))
+    with pytest.raises(ImportError, match="matplotlib.*--no-render"):
         main(["why", "--env", "deep_mimic_mujoco", "--no-wandb",
-              "--device", "cpu"])
+              "--device", "cpu", "--out", str(tmp_path / "none")])
+    assert not os.path.exists(tmp_path / "none")
