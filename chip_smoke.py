@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --data-parallel     # the build and phase 13 only
 
 Phases, each printed with its seconds:
   0. card: name and power limit (nvidia-smi), torch's device name, and
@@ -86,7 +87,30 @@ Phases, each printed with its seconds:
      the rendered paths, once per plan: on the first step with an
      active row of the h3d walk gate actor (the dashboard, the viewer's
      policy) and of the extracted G1 run artifact (play, play --video)
- 13. gate replays, each in a process of its own (``--replay NAME``),
+ 13. data parallel: the training CLI's PPO on its default combined env
+     (--handoff-buffer 0.25 --facedown-rsi 0.1) at its default widths
+     (2048 x 64, 20 epochs x 32 minibatches of 4096, net (256, 128)),
+     one seed, unsharded and through deepmimic_mujoco_tpu_torch.parallel:
+     world 1 over NCCL in this process, and world 2 over gloo with both
+     ranks on the one card (spawned by parallel.dryrun.launch; NCCL
+     refuses two ranks on one device, so gloo is asked for by name: a
+     correctness path, not a scaling number). Each world is held against
+     the unsharded runs: the update alone on the unsharded rollout's
+     batch for its first epoch (losses 1e-4, params 5e-4 scaled, the
+     tolerances of tests/test_multichip.py: the gate), the first step
+     per env (its sampled action and the obs after it, TOL_KERNEL); the
+     update's 20 epochs and the whole iteration are printed beside the
+     unsharded runs from params moved by 1e-7 (at these widths the
+     update itself turns a 1e-7 move into ~1e-1 scaled over 640 steps)
+     and beside the prediction. Per rank: 64 launches an iteration, the collectives
+     (all_reduce count against 2 + epochs + gradient steps, 65
+     all_gathers), the bytes and seconds of the trajectory gather and
+     the handoff-row gathers, replicas equal bit for bit, env-steps/s.
+     On a machine with several cards (``--data-parallel``, which runs
+     the build and this phase alone), a world of every card over NCCL
+     is held the same way. Then the kernel held and timed on rank 0's
+     first-step inputs (B 1024, G1 plan)
+ 14. gate replays, each in a process of its own (``--replay NAME``),
      all started together (each is host-bound), with mean actions; a
      batch replay reads its alive flags every 50 steps and stops once
      every episode has ended:
@@ -216,6 +240,18 @@ RENDER_DIR = os.path.join(REPO, "build", "render_smoke")
 # dashboard's episode cap and play --video's steps
 VIEW_FRAMES, DASHBOARD_STEPS, PLAY_VIDEO_STEPS = 10, 60, 100
 REPLAY_TIMEOUT = 900
+# the data-parallel phase: the training CLI's default (combined) env with
+# the handoff buffer armed, at the CLI's default PPO widths, one seed
+DP_ARGV = ["chip smoke", "--no-wandb", "--no-render", "--handoff-buffer",
+           "0.25", "--facedown-rsi", "0.1"]
+DP_SEED = 0
+TOL_DP_LOSS = 1e-4       # |d| / max(|loss|, 1), tests/test_multichip.py
+TOL_DP_PARAM = 5e-4      # max|d| / max(max|p|, 1e-3), the same test
+# the whole iteration's divergence from the unsharded one, by world:
+# (stats relative, params scaled), predicted before the first run
+# (PERF.md section 6, the data-parallel slice; a world of every card,
+# where there are several, takes world 2's); printed, not held
+DP_PREDICTED = {1: (0.0, 0.0), 2: (1e-3, 1e-3)}
 
 
 def check(cond, msg):
@@ -569,6 +605,334 @@ def replay_job(name):
     res["launches"] = fs.fused_solve.launches
     res["seconds"] = time.perf_counter() - t0
     print("REPLAY_RESULT " + json.dumps(res), flush=True)
+
+
+def dp_ppo(device):
+    """The training CLI's PPO on DP_ARGV, its env on ``device``."""
+    from deepmimic_mujoco_tpu_torch.rl import train
+    from deepmimic_mujoco_tpu_torch.rl.ppo import PPO
+
+    args = train.parse_reason(DP_ARGV)
+    args.device = str(device)
+    return PPO(*train.build(args))
+
+
+def dp_fresh(ppo, mesh=None, perturb=0.0):
+    """``ppo.init(DP_SEED)``, its params scaled by ``1 + perturb``, placed
+    on ``mesh`` when given."""
+    import torch
+
+    from deepmimic_mujoco_tpu_torch.parallel import shard_train_state
+
+    ts = ppo.init(seed=DP_SEED)
+    if perturb:
+        with torch.no_grad():
+            for p in ts.net.parameters():
+                p.mul_(1.0 + perturb)
+    return ts if mesh is None else shard_train_state(ts, mesh)
+
+
+def dp_update(ppo, batch, mesh=None, perturb=0.0):
+    """PPO.update alone on the flattened ``batch`` from ``dp_fresh``:
+    (the five mean losses, params, seconds), on the CPU."""
+    import torch
+
+    ts = dp_fresh(ppo, mesh, perturb)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    aux = ppo.update(ts, [x.to(ts.last_obs.device) for x in batch])
+    torch.cuda.synchronize()
+    return (aux.reshape(-1, 5).mean(0).cpu(),
+            {k: v.detach().cpu().clone()
+             for k, v in ts.net.state_dict().items()},
+            time.perf_counter() - t)
+
+
+def dp_iteration(ppo, mesh=None, batch=None, perturb=0.0):
+    """The data-parallel phase's runs of one rank (or, without ``mesh``,
+    of the unsharded trainer), each from ``dp_fresh``: with ``batch`` (a
+    flattened rollout batch), the update alone on it for one epoch (the
+    gate) and for all of the config's epochs; then one whole iteration
+    with the kernel's count zeroed just before it and read just after.
+    Returns CPU tensors and numbers: the updates' (losses, params,
+    seconds), and the iteration's stats, five mean losses, params,
+    launches, wall seconds, collectives, gathers (dim, bytes this rank
+    sends, seconds), first step (the obs after it and the sampled
+    action, every env) and, unsharded, its batch."""
+    import dataclasses
+
+    import torch
+
+    from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
+    from deepmimic_mujoco_tpu_torch.parallel import replicated
+    from deepmimic_mujoco_tpu_torch.rl import ppo as ppo_mod
+
+    cfg, res = ppo.cfg, {}
+    if batch is not None:
+        one_epoch = ppo_mod.PPO(ppo.env, dataclasses.replace(cfg, epochs=1))
+        res["update_1"] = dp_update(one_epoch, batch, mesh, perturb)
+        res["update"] = dp_update(ppo, batch, mesh, perturb)
+
+    # instrumentation: each gather's bytes and seconds, and the batch the
+    # update is handed
+    gathers, batches = [], []
+    gather = ppo_mod._gather_columns
+
+    def timed_gather(sharding, xs, dim):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = gather(sharding, xs, dim)
+        torch.cuda.synchronize()
+        gathers.append((dim, 4 * sum(x.numel() for x in xs),
+                        time.perf_counter() - t))
+        return out
+
+    update = ppo.update
+    ppo.update = lambda ts, b: batches.append(b) or update(ts, b)
+    ppo_mod._gather_columns = timed_gather
+    try:
+        ts = dp_fresh(ppo, mesh, perturb)
+        counts = dict(mesh.counts) if mesh is not None else None
+        updates = ts.opt.count
+        torch.cuda.synchronize()
+        fs.fused_solve.launches = 0
+        t = time.perf_counter()
+        ts, st = ppo.train_iter(ts)
+        torch.cuda.synchronize()
+        res["wall_s"] = time.perf_counter() - t
+        res["launches"] = fs.fused_solve.launches
+    finally:
+        ppo_mod._gather_columns = gather
+        del ppo.update
+    n = cfg.n_envs
+    b = batches[0]
+    res.update(
+        stats={k: float(getattr(st, k)) for k in (
+            "pg_loss", "v_loss", "entropy", "approx_kl", "clip_frac",
+            "mean_reward", "ep_return_sum", "ep_count", "ep_len_sum",
+            "contact_overflow_max")},
+        params={k: v.detach().cpu().clone()
+                for k, v in ts.net.state_dict().items()},
+        handoff_count=int(st.handoff_count),
+        updates=ts.opt.count - updates, gathers=gathers,
+        first={"obs": b[0][n:2 * n].cpu(), "action": b[1][:n].cpu()})
+    if mesh is None:
+        res["batch"] = [x.cpu() for x in b]
+    else:
+        res["backend"] = mesh.backend
+        res["counts"] = {k: v - counts[k] for k, v in mesh.counts.items()}
+        rep = replicated(mesh)
+        res["replicas_equal"] = all(rep.check(x) for x in (
+            *ts.net.parameters(), *ts.opt.mu, *ts.opt.nu,
+            *ts.handoff_buf, *(g.get_state() for g in ts.gens.values())))
+    return res
+
+
+def dp_rank(mesh, batch_path):
+    """A rank of the data-parallel phase's world 2 (``parallel.dryrun.
+    launch``): the CLI's PPO on this rank's card, its half of the envs."""
+    import torch
+
+    from deepmimic_mujoco_tpu_torch.utils.device import fp32_physics
+
+    fp32_physics()
+    batch = torch.load(batch_path, weights_only=True)
+    return dp_iteration(dp_ppo(mesh.device), mesh, batch)
+
+
+def dp_diffs(ref, got) -> dict:
+    """``got`` against the unsharded ``ref``: losses as |d| / max(|a|, 1)
+    and params as max|d| / max(max|p|, 1e-3) (tests/test_multichip.py's
+    measures) for both updates on the fixed batch; the first step per
+    env (each env scaled by its own max); the whole iteration's stats
+    (relative) and params."""
+    def losses(a, b):
+        return max(float((x - y).abs()) / max(abs(float(x)), 1.0)
+                   for x, y in zip(a, b))
+
+    def params(a, b):
+        return max(float((v - b[k]).abs().max())
+                   / max(float(v.abs().max()), 1e-3) for k, v in a.items())
+
+    return dict(
+        update_1=(losses(ref["update_1"][0], got["update_1"][0]),
+                  params(ref["update_1"][1], got["update_1"][1])),
+        update=(losses(ref["update"][0], got["update"][0]),
+                params(ref["update"][1], got["update"][1])),
+        first_step={k: env_scaled_err(ref["first"][k], got["first"][k])
+                    for k in ("obs", "action")},
+        iteration=(max(abs(a - got["stats"][k]) / max(abs(a), 1e-12)
+                       for k, a in ref["stats"].items()),
+                   params(ref["params"], got["params"])))
+
+
+def dp_held(label, d, noise, world, n_mb):
+    """Print a world's divergences ``d`` beside ``noise``'s (the unsharded
+    runs from params moved by 1e-7: what the arithmetic itself makes of
+    a rounding) and hold the update's first epoch on the fixed batch at
+    TOL_DP_LOSS / TOL_DP_PARAM (the gate) and the first step per env at
+    TOL_KERNEL. The whole iteration is printed beside DP_PREDICTED."""
+    import math
+
+    pred_s, pred_p = DP_PREDICTED.get(world, DP_PREDICTED[2])
+    it_s, it_p = d["iteration"]
+    print(f"{label} against the unsharded runs (beside: the unsharded runs "
+          f"from params x (1 + 1e-7)):")
+    print(f"  the update on the unsharded rollout's batch, first epoch "
+          f"({n_mb} minibatch steps): losses {d['update_1'][0]:.3e} (limit "
+          f"{TOL_DP_LOSS}), params {d['update_1'][1]:.3e} scaled (limit "
+          f"{TOL_DP_PARAM}); beside {noise['update_1'][0]:.3e} and "
+          f"{noise['update_1'][1]:.3e}")
+    print(f"  the same update, all epochs: losses {d['update'][0]:.3e}, "
+          f"params {d['update'][1]:.3e} scaled; beside "
+          f"{noise['update'][0]:.3e} and {noise['update'][1]:.3e}")
+    print(f"  the first step per env: obs {d['first_step']['obs']:.3e}, "
+          f"action {d['first_step']['action']:.3e} (limit {TOL_KERNEL})")
+    print(f"  the whole iteration: stats {it_s:.3e} relative at most, "
+          f"params {it_p:.3e} scaled; beside {noise['iteration'][0]:.3e} "
+          f"and {noise['iteration'][1]:.3e}; predicted (PERF.md) at most "
+          f"{pred_s:g} and {pred_p:g}: "
+          + ("inside" if it_s <= pred_s and it_p <= pred_p
+             else "OUTSIDE the prediction"))
+    loss_d, param_d = d["update_1"]
+    check(math.isfinite(loss_d) and loss_d < TOL_DP_LOSS,
+          f"{label}: the first epoch's losses differ by {loss_d:.3e}")
+    check(param_d < TOL_DP_PARAM,
+          f"{label}: the first epoch's params differ by {param_d:.3e}")
+    check(all(v < TOL_KERNEL for v in d["first_step"].values()),
+          f"{label}: the first step differs per env: {d['first_step']}")
+
+
+def data_parallel(card, dev):
+    """Phase 13: the CLI's PPO on its default combined env, sharded."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from deepmimic_mujoco_tpu_torch.parallel import dryrun
+    from deepmimic_mujoco_tpu_torch.parallel import mesh as mesh_lib
+    from deepmimic_mujoco_tpu_torch.rl import networks, ppo as ppo_mod
+
+    ppo = dp_ppo(dev)
+    cfg = ppo.cfg
+    check((cfg.n_envs, cfg.horizon, cfg.minibatch_size, cfg.epochs,
+           cfg.net_arch) == (2048, 64, 4096, 20, (256, 128))
+          and ppo._handoff, f"not the CLI's default widths: {cfg}")
+    spi = cfg.n_envs * cfg.horizon
+    ref = dp_iteration(ppo)
+    batch = ref.pop("batch")
+    one_epoch = ppo_mod.PPO(ppo.env, dataclasses.replace(cfg, epochs=1))
+    ref["update_1"] = dp_update(one_epoch, batch)
+    ref["update"] = dp_update(ppo, batch)
+    noise = dp_diffs(ref, dp_iteration(ppo, batch=batch, perturb=1e-7))
+    out_dir = os.path.join(REPO, "build", "dp_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    batch_path = os.path.join(out_dir, "batch.pt")
+    torch.save(batch, batch_path)
+    print(f"unsharded iteration on {card}: {spi / ref['wall_s']:.1f} "
+          f"env-steps/s ({ref['wall_s']:.3f} s), {ref['launches']} kernel "
+          f"launches, handoff_count {ref['handoff_count']}, mean_reward "
+          f"{ref['stats']['mean_reward']:.6f}, pg_loss "
+          f"{ref['stats']['pg_loss']:.6f}")
+    check(ref["launches"] == cfg.horizon,
+          f"unsharded: {ref['launches']} launches")
+
+    # world 1 over NCCL, in this process
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = mesh_lib.init_group(0, 1, f"file://{tmp}/store", device=dev)
+        try:
+            check(mesh.backend == "nccl", f"world 1 on {mesh.backend}")
+            w1 = dp_iteration(ppo, mesh, batch)
+        finally:
+            dist.destroy_process_group()
+    # world 2 on the one card: NCCL refuses two ranks on one device, so
+    # gloo, asked for by name
+    n_cards = torch.cuda.device_count()
+    print("world 2 over gloo with CUDA tensors, asked for by name: "
+          + ("one card, and NCCL refuses two ranks on one device; a "
+             "correctness path, not a scaling number" if n_cards == 1 else
+             f"its ranks on cards 0 and 1 of {n_cards}"))
+    tw = time.perf_counter()
+    w2 = dryrun.launch(dp_rank, 2, args=(batch_path,), device=dev,
+                       backend="gloo")
+    w2_s = time.perf_counter() - tw
+    worlds = [(1, [w1]), (2, w2)]
+    if n_cards > 1:
+        # every card a rank of its own, over NCCL
+        worlds.append((n_cards, dryrun.launch(dp_rank, n_cards,
+                                              args=(batch_path,),
+                                              device=dev)))
+    held = {}
+    for world, ranks in worlds:
+        for r, got in enumerate(ranks):
+            label = f"world {world} rank {r}"
+            traj = [g for g in got["gathers"] if g[0] == 1]
+            rows = [g for g in got["gathers"] if g[0] == 0]
+            want_ar = 2 + cfg.epochs + got["updates"]
+            print(f"{label} ({got['backend']}) on {card}: "
+                  f"{spi / got['wall_s']:.1f} env-steps/s for the world's "
+                  f"{spi} steps ({got['wall_s']:.3f} s; update alone on "
+                  f"the fixed batch {got['update'][2]:.3f} s); "
+                  f"{got['launches']} kernel launches; collectives "
+                  f"{got['counts']['all_reduce']} all_reduce (expected "
+                  f"{want_ar}: 2 stats, {cfg.epochs} losses, "
+                  f"{got['updates']} gradient), "
+                  f"{got['counts']['all_gather']} all_gather, "
+                  f"{got['counts']['bytes']} bytes sent; the trajectory "
+                  f"gather {traj[0][1]} bytes a rank in {traj[0][2]:.4f} "
+                  f"s, the handoff rows {len(rows)} gathers of "
+                  f"{rows[0][1]} bytes in {sum(g[2] for g in rows):.4f} s; "
+                  f"handoff_count {got['handoff_count']}, replicas equal "
+                  f"{got['replicas_equal']}")
+            check(got["launches"] == cfg.horizon,
+                  f"{label}: {got['launches']} launches in an iteration")
+            check(got["counts"]["all_reduce"] == want_ar
+                  and got["counts"]["all_gather"] == cfg.horizon + 1,
+                  f"{label}: collectives {got['counts']}")
+            check(got["replicas_equal"], f"{label}: the replicas differ")
+            check(got["handoff_count"] == ref["handoff_count"],
+                  f"{label}: handoff_count {got['handoff_count']}")
+            held[(world, r)] = dp_diffs(ref, got)
+            dp_held(label, held[(world, r)], noise, world,
+                    ppo.n_minibatches)
+    for world, ranks in worlds[1:]:
+        check(all(torch.equal(a, got["params"][k]) for got in ranks[1:]
+                  for k, a in ranks[0]["params"].items()),
+              f"world {world}: the ranks' params differ")
+    print(f"world 2 launch (spawn, env build, both runs): {w2_s:.2f} s")
+
+    # the kernel on rank 0's first-step inputs (B = n_envs / 2)
+    n = cfg.n_envs // 2
+    with torch.no_grad():
+        ts = ppo.init(seed=DP_SEED)
+        state = type(ts.env_states)(*[x[:n] for x in ts.env_states])
+        obs = ts.last_obs[:n]
+        mean, log_std, _ = ts.net(obs)
+        # the global batch's draw, as every rank draws it
+        eps = ppo.draw_noise(ts, mean.new_empty(cfg.n_envs,
+                                                mean.shape[1]))[:n]
+        action = networks.env_action(ts.net, obs,
+                                     mean + torch.exp(log_std) * eps)
+        args, kw = capture_parts(ppo.env, state, action)
+    check((kw["K"], kw["L"], args[0].shape[0]) == (24, 37, n),
+          f"rank 0's solve: K={kw['K']}, L={kw['L']}, B={args[0].shape[0]}")
+    dp_k = kernel_on_main_path(f"data-parallel rank 0 (B {n})", card, args,
+                               kw)
+    return dict(launches=w2[0]["launches"],
+                launches_per_rank={f"world{w}": [g["launches"] for g in rs]
+                                   for w, rs in worlds},
+                **dp_k, held={f"world{w}_rank{r}": v
+                              for (w, r), v in held.items()},
+                perturbed_1e7=noise,
+                env_steps_per_s={"unsharded": spi / ref["wall_s"], **{
+                    f"world{w}_{rs[0]['backend']}":
+                        spi / max(g["wall_s"] for g in rs)
+                    for w, rs in worlds}},
+                all_reduce_per_iteration=w2[0]["counts"]["all_reduce"],
+                trajectory_gather=[g for g in w2[0]["gathers"]
+                                   if g[0] == 1][0][1:])
 
 
 def render_modules():
@@ -1761,7 +2125,7 @@ def main():
     sweep = profiling.throughput_sweep(env, SWEEP_BATCHES)
     print("  batch | env-steps/s\n" + "\n".join(
         f"  {b:5d} | {sps:.1f}" for b, sps in sweep))
-    # the kernel at B 1, the batch of the rendered paths of phase 13, held
+    # the kernel at B 1, the batch of the rendered paths of phase 14, held
     # once per plan: h3d (the dashboard's episode and the viewer's policy:
     # the h3d walk gate actor) and G1 (play and play --video: the
     # extracted run artifact), each from frame 20 on its first step with
@@ -1802,7 +2166,12 @@ def main():
     del env, g1_env
     done(t0, "tools")
 
-    # ---- 13. gate replays -------------------------------------------------
+    # ---- 13. data parallel ------------------------------------------------
+    t0 = phase("data parallel")
+    dp = data_parallel(card, dev)
+    done(t0, "data parallel")
+
+    # ---- 14. gate replays -------------------------------------------------
     t0 = phase("gate replays")
     res = run_replays(card, REPLAYS, REPLAY_TIMEOUT)
     for name, (_, motion, robot, idx0, gate, jax_rew) in GATES.items():
@@ -1910,15 +2279,18 @@ def main():
         "route": "cuda",
         "source": "deepmimic_mujoco_tpu_torch/ops/csrc/fused_solve.cu",
         "replaces": "deepmimic_mujoco_tpu/ops/fused_solve.py:67",
-        # this slice's main path: SAC training's collect (h3d plan), B 256
-        "launches": sum(sac_launches),
-        **sac_k,
+        # this slice's main path: data-parallel PPO, world 2 rank 0's
+        # iteration (G1 plan), B 1024 a rank
+        "launches": dp["launches"],
+        **{k: dp[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by")},
         "library_ms": None,
         "regs": info["h3d"]["regs"],
         "spills": spills,
         "smem_bytes": info["h3d"]["smem_bytes"],
         "blocks_per_sm": info["h3d"]["blocks_per_sm"],
         "paths": {
+            "ppo_dp": {**dp, "library_ms": None},
             "sac_h3d_b256": {"launches": sum(sac_launches), **sac_k},
             "sac_train": {"launches": sum(sac_launches),
                           "launches_per_iteration": sac_launches,
@@ -1988,7 +2360,38 @@ def main():
     return 0
 
 
+def data_parallel_main():
+    """``chip_smoke.py --data-parallel``: the build and phase 13 alone
+    (on a machine with several cards, with its world of every card over
+    NCCL), then the phase's numbers as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
+    from deepmimic_mujoco_tpu_torch.utils.device import fp32_physics
+
+    fp32_physics()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    cards = [c.strip() for c in smi.stdout.strip().splitlines()]
+    print(f"cards: {'; '.join(cards)}")
+    fs.build_all(names=("fused_solve",))
+    t0 = phase("data parallel")
+    dp = data_parallel(cards[0], torch.device("cuda"))
+    done(t0, "data parallel")
+    print(json.dumps(dp))
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 2 and sys.argv[1] == "--data-parallel":
+        sys.exit(data_parallel_main())
     if len(sys.argv) == 3 and sys.argv[1] == "--replay":
         sys.path.insert(0, REPO)
         replay_job(sys.argv[2])

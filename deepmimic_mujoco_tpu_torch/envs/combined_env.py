@@ -18,7 +18,8 @@ RUN (src/combined_env.py:402). ``getup_timeout_to_walk=True`` gives the
 evidently intended behavior.
 
 Random draws come from a ``torch.Generator`` the caller passes in, or
-are forced (``ResetDraws``). The JAX package draws the handoff-RSI and
+are forced (``ResetDraws``); with a data-parallel ``shard`` either is the
+global batch's draw and the rank keeps its slice (see ``DPEnv``). The JAX package draws the handoff-RSI and
 facedown-RSI coins from one key (k4 and a split of it); the port draws
 independent samples.
 """
@@ -297,7 +298,7 @@ class DPCombinedEnv:
 
     def _reset_state(self, n: int, generator=None,
                      handoff_buf: Optional[HandoffBuffer] = None,
-                     draws: Optional[ResetDraws] = None
+                     draws: Optional[ResetDraws] = None, shard=None
                      ) -> CombinedEnvState:
         """50/50 walk (past the amnesty window) or getup at a random
         frame (reference: src/combined_env.py:208-244). Training-only
@@ -305,10 +306,15 @@ class DPCombinedEnv:
         lands in the last quarter of the getup clip, a FACEDOWN_RSI_FRAC
         share at getup frame 0 with zero velocity, RSI_RANDOM_PA
         randomizes the commanded locomotion, and a HANDOFF_BUFFER_FRAC
-        share starts from a state of the handoff buffer."""
+        share starts from a state of the handoff buffer. With a
+        ``shard``, the draws (generated or forced) are the global batch's
+        and this rank keeps its ``n`` rows."""
         cfg = self.ENV_CFG
         d = draws if draws is not None else self.draw_reset(
-            n, generator, handoff_buf)
+            n * (shard.world if shard is not None else 1), generator,
+            handoff_buf)
+        if shard is not None:
+            d = ResetDraws(*[shard.shard(x) for x in d])
         walk_steps = cfg.AMNESTY_STEPS + 10 + d.walk_r
         motion_id = torch.where(d.pick_walk, WALK, GETUP)
         n_steps = torch.where(d.pick_walk, walk_steps, d.getup_r)
@@ -354,10 +360,10 @@ class DPCombinedEnv:
 
     # ---- API --------------------------------------------------------------
     def reset(self, n_envs: int, generator: Optional[torch.Generator] = None,
-              draws: Optional[ResetDraws] = None
+              draws: Optional[ResetDraws] = None, shard=None
               ) -> Tuple[CombinedEnvState, torch.Tensor]:
         return self._with_obs(self._reset_state(n_envs, generator,
-                                                draws=draws))
+                                                draws=draws, shard=shard))
 
     def reset_to(self, qpos, qvel, motion_id, n_steps, player_action
                  ) -> Tuple[CombinedEnvState, torch.Tensor]:
@@ -482,13 +488,14 @@ class DPCombinedEnv:
     def step_auto_reset(self, state: CombinedEnvState, action: torch.Tensor,
                         generator: Optional[torch.Generator] = None,
                         handoff_buf: Optional[HandoffBuffer] = None,
-                        draws: Optional[ResetDraws] = None):
+                        draws: Optional[ResetDraws] = None, shard=None):
         """Training step: on done, the next state is a fresh reset drawn
         from ``generator`` (or ``draws``), from the handoff buffer where
-        armed; the obs returned is the terminal obs."""
+        armed; the obs returned is the terminal obs. With a ``shard``,
+        see ``_reset_state``."""
         new_state, out = self.step(state, action)
         reset_state = self._reset_state(out.done.shape[0], generator,
-                                        handoff_buf, draws)
+                                        handoff_buf, draws, shard)
         d = out.done
         picked = CombinedEnvState(*[
             torch.where(d.view((-1,) + (1,) * (a.dim() - 1)), a, b)

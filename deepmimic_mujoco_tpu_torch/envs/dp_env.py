@@ -9,7 +9,10 @@ batched state:
     state', out = env.step(state, action)
 
 Every state field carries a leading env axis. Random draws (RSI frames)
-come from a ``torch.Generator`` the caller passes in.
+come from a ``torch.Generator`` the caller passes in. Under data
+parallelism (``parallel/mesh.py``) a rank holds a slice of the env batch
+and passes its ``shard``: each draw is then the global batch's draw,
+sliced, so the sharded envs draw what the unsharded batch would.
 
 Divergence handling: non-finite state or |obs| > 100 zeroes the
 observation and terminates with a machine-readable done_reason.
@@ -72,6 +75,15 @@ class StepOut(NamedTuple):
     # active contacts dropped by the fixed-slot top-K selection this
     # step (0 = lossless)
     contact_overflow: torch.Tensor
+
+
+def sharded(draw, n: int, shard=None):
+    """``draw(m)`` of the ``m`` rows of the global batch whose ``shard``
+    this rank's ``n`` rows are, sliced to them; ``draw(n)`` without a
+    shard."""
+    if shard is None:
+        return draw(n)
+    return shard.shard(draw(n * shard.world))
 
 
 class DPEnv:
@@ -168,13 +180,15 @@ class DPEnv:
 
     # ---- functional API --------------------------------------------------
     def reset(self, n_envs: int, generator: Optional[torch.Generator] = None,
-              idx_init=None) -> Tuple[DPEnvState, torch.Tensor]:
+              idx_init=None, shard=None) -> Tuple[DPEnvState, torch.Tensor]:
         """Reference-state initialization of ``n_envs`` envs: random clip
-        frames drawn from ``generator``, or the forced frame(s)
+        frames drawn from ``generator`` (with a ``shard``, this rank's
+        slice of the global batch's draw), or the forced frame(s)
         ``idx_init`` (an int for all envs, or one per env)
         (reference: src/deepmimic_env.py:312-316, :502-510)."""
         if idx_init is None:
-            idx = self._draw_frames(n_envs, generator)
+            idx = sharded(lambda m: self._draw_frames(m, generator), n_envs,
+                          shard)
         else:
             idx = torch.as_tensor(idx_init, dtype=torch.int64,
                                   device=self.device)
@@ -271,14 +285,16 @@ class DPEnv:
         return new_state, out
 
     def step_auto_reset(self, state: DPEnvState, action: torch.Tensor,
-                        generator: Optional[torch.Generator] = None
-                        ) -> Tuple[DPEnvState, StepOut]:
+                        generator: Optional[torch.Generator] = None,
+                        shard=None) -> Tuple[DPEnvState, StepOut]:
         """Training step: on done, the next state is a fresh RSI reset at
         a frame drawn from ``generator`` (the obs returned is the
-        terminal obs, matching SB3 vec-env accounting)."""
+        terminal obs, matching SB3 vec-env accounting); with a ``shard``,
+        at this rank's slice of the global batch's draw."""
         new_state, out = self.step(state, action)
-        reset_state = self._fresh_state(
-            self._draw_frames(out.done.shape[0], generator))
+        reset_state = self._fresh_state(sharded(
+            lambda m: self._draw_frames(m, generator), out.done.shape[0],
+            shard))
         d = out.done
         picked = DPEnvState(*[
             torch.where(d.view((-1,) + (1,) * (a.dim() - 1)), a, b)

@@ -32,6 +32,26 @@ Random draws come from explicit generators held in the train state:
 action noise, the minibatch permutations and the envs' RSI reset frames.
 ``draw_noise`` and ``draw_perm`` are the two draws a subclass may replace
 (the parity tests hand in the JAX package's draws there).
+
+Data parallelism (``parallel/mesh.py``): a train state placed by
+``shard_train_state`` carries its mesh, and ``train_iter`` then runs on
+this rank's slice of the env batch with every read across envs made an
+explicit collective, so that it computes what the unsharded iteration
+does:
+- every draw is the global batch's draw from the replicated generators,
+  and the rank keeps its slice (a forced draw is the global draw);
+- the handoff buffer is written from the rows of every rank, gathered
+  in env order, so every rank holds the unsharded buffer;
+- the rollout stats are summed (the overflow: maxed) over the ranks;
+- the trajectory is gathered once, before it is flattened, so flat index
+  ``t * n_envs + e`` names the unsharded sample; each minibatch of the
+  global permutation is split into W equal parts by position, each
+  rank's loss normalizes its part's advantages by the whole minibatch's
+  mean and std, and the gradients are averaged over the ranks in one
+  all_reduce of one flat buffer per minibatch step, so the clip and Adam
+  run on the same gradients on every rank and the params stay equal;
+- the losses are averaged over the ranks before the KL guard and the lr
+  controller read them.
 """
 from __future__ import annotations
 
@@ -41,7 +61,9 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from deepmimic_mujoco_tpu_torch.parallel.mesh import data_sharding
 from deepmimic_mujoco_tpu_torch.rl import networks
 
 
@@ -106,7 +128,9 @@ class TrainState:
     the lr schedule); ``gens`` are the generators of the action noise
     ("act"), the minibatch permutations ("perm") and the RSI reset draws
     ("rsi"); ``handoff_buf`` is the combined env's on-policy handoff
-    buffer (None when unused)."""
+    buffer (None when unused); ``mesh`` is the data-parallel mesh the
+    state was placed on (``parallel.shard_train_state``; None when
+    unsharded)."""
     net: torch.nn.Module
     opt: Adam
     env_states: Any
@@ -117,6 +141,7 @@ class TrainState:
     ep_length: torch.Tensor
     lr_scale: float             # adaptive lr-by-KL state (1.0 when off)
     handoff_buf: Any = None
+    mesh: Any = None
 
 
 class Transition(NamedTuple):
@@ -207,6 +232,20 @@ class Adam:
                 d.copy_(s)
 
 
+def _gather_columns(sharding, xs, dim: int):
+    """Each of ``xs`` (tensors of one leading shape, any dtypes)
+    gathered along ``dim`` in rank order, through one all_gather of one
+    float32 buffer. The values it carries are float32 or small integers
+    and masks, which float32 holds exactly."""
+    lead = xs[0].shape[:dim + 1]
+    cols = [x.reshape(lead + (-1,)) for x in xs]
+    flat = sharding.gather(torch.cat([c.to(torch.float32) for c in cols],
+                                     -1), dim)
+    out = flat.split([c.shape[-1] for c in cols], -1)
+    return tuple(o.reshape(o.shape[:dim + 1] + x.shape[dim + 1:]).to(x.dtype)
+                 for o, x in zip(out, xs))
+
+
 class PPO:
     """Trainer bound to a functional env (``DPEnv`` or
     ``DPCombinedEnv``)."""
@@ -258,12 +297,36 @@ class PPO:
 
     # ---- the draws --------------------------------------------------------
     def draw_noise(self, ts: TrainState, mean: torch.Tensor) -> torch.Tensor:
-        return torch.randn(mean.shape, generator=ts.gens["act"],
-                           dtype=mean.dtype, device=mean.device)
+        """The action noise of the global batch: ``mean`` holds this
+        rank's rows, the draw has W times as many."""
+        world = ts.mesh.world if ts.mesh is not None else 1
+        return torch.randn((mean.shape[0] * world,) + mean.shape[1:],
+                           generator=ts.gens["act"], dtype=mean.dtype,
+                           device=mean.device)
 
     def draw_perm(self, ts: TrainState, n: int) -> torch.Tensor:
         return torch.randperm(n, generator=ts.gens["perm"],
                               device=self.device)
+
+    # ---- data parallelism -----------------------------------------------
+    @staticmethod
+    def _sharding(ts: TrainState):
+        return None if ts.mesh is None else data_sharding(ts.mesh)
+
+    def _check_mesh(self, ts: TrainState):
+        """A sharded state must split the config's batch and minibatches
+        evenly over its ranks."""
+        if ts.mesh is None:
+            return
+        cfg, world = self.cfg, ts.mesh.world
+        if cfg.minibatch_size % world:
+            raise ValueError(f"minibatch_size {cfg.minibatch_size} does not "
+                             f"split over {world} ranks")
+        if ts.last_obs.shape[0] * world != cfg.n_envs:
+            raise ValueError(
+                f"{ts.last_obs.shape[0]} envs on each of {world} ranks, "
+                f"n_envs {cfg.n_envs}: place the state with "
+                "parallel.shard_train_state")
 
     # ---- one iteration ----------------------------------------------------
     def rollout(self, ts: TrainState):
@@ -275,25 +338,32 @@ class PPO:
         states, obs = ts.env_states, ts.last_obs
         ep_ret, ep_len = ts.ep_return, ts.ep_length
         hbuf = ts.handoff_buf
+        sh = self._sharding(ts)
+        env_kw = {} if sh is None else {"shard": sh}
         trs, stats = [], []
         with torch.no_grad():
             for _ in range(cfg.horizon):
                 mean, log_std, value = net(obs)
-                action = mean + torch.exp(log_std) * self.draw_noise(ts, mean)
+                noise = self.draw_noise(ts, mean)
+                if sh is not None:
+                    noise = sh.shard(noise)
+                action = mean + torch.exp(log_std) * noise
                 logp = networks.gaussian_logp(action, mean, log_std)
                 env_a = networks.env_action(net, obs, action)
                 if self._handoff:
                     prev_motion = states.motion_id
                     prev_pa = states.player_action
                     states, out = self.env.step_auto_reset(
-                        states, env_a, ts.gens["rsi"], handoff_buf=hbuf)
-                    mask = self.env.handoff_capture_mask(prev_motion, out)
-                    hbuf = self.env.update_handoff_buffer(
-                        hbuf, mask, states.qpos, states.qvel, prev_pa,
-                        out.motion_id)
+                        states, env_a, ts.gens["rsi"], handoff_buf=hbuf,
+                        **env_kw)
+                    rows = (self.env.handoff_capture_mask(prev_motion, out),
+                            states.qpos, states.qvel, prev_pa, out.motion_id)
+                    if sh is not None:
+                        rows = _gather_columns(sh, rows, 0)
+                    hbuf = self.env.update_handoff_buffer(hbuf, *rows)
                 else:
-                    states, out = self.env.step_auto_reset(states, env_a,
-                                                           ts.gens["rsi"])
+                    states, out = self.env.step_auto_reset(
+                        states, env_a, ts.gens["rsi"], **env_kw)
                 ep_ret = ep_ret + out.reward
                 ep_len = ep_len + 1
                 done_f = out.done.to(torch.float32)
@@ -316,7 +386,16 @@ class PPO:
         ts.env_states, ts.last_obs = states, obs
         ts.ep_return, ts.ep_length = ep_ret, ep_len
         ts.handoff_buf = hbuf
-        return traj, torch.stack(stats)
+        stats = torch.stack(stats)
+        if sh is not None:
+            # per step: the means of equal slices and the sums are summed
+            # (the means then divided by W), the overflow maxed
+            mesh = ts.mesh
+            sums = mesh.all_reduce(stats[:, :4])
+            sums[:, 0] /= mesh.world
+            ov = mesh.all_reduce(stats[:, 4:], op=dist.ReduceOp.MAX)
+            stats = torch.cat([sums, ov], 1)
+        return traj, stats
 
     def gae(self, ts: TrainState, traj: Transition):
         """(advantages, returns), each (horizon, n_envs). The bootstrap
@@ -349,16 +428,21 @@ class PPO:
         advantages = torch.stack(advs[::-1])
         return advantages, advantages + traj.value
 
-    def loss(self, net, mb):
+    def loss(self, net, mb, adv_all=None):
         """(total, (pg_loss, v_loss, entropy, approx_kl, clip_frac)) of
-        one minibatch (obs, action, old_logp, old_value, adv, ret)."""
+        one minibatch (obs, action, old_logp, old_value, adv, ret). The
+        advantages are normalized by the mean and std of ``adv_all``:
+        the whole minibatch's, of which ``mb`` is a rank's part (default:
+        ``mb``'s own)."""
         cfg = self.cfg
         obs, action, old_logp, old_value, adv, ret = mb
+        if adv_all is None:
+            adv_all = adv
         mean, log_std, value = net(obs)
         logp = networks.gaussian_logp(action, mean, log_std)
         ratio = torch.exp(logp - old_logp)
-        adv_n = (adv - adv.mean()) / torch.clamp(
-            adv.std(unbiased=False), min=cfg.adv_std_floor)
+        adv_n = (adv - adv_all.mean()) / torch.clamp(
+            adv_all.std(unbiased=False), min=cfg.adv_std_floor)
         pg1 = -adv_n * ratio
         pg2 = -adv_n * torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps)
         pg_loss = torch.maximum(pg1, pg2).mean()
@@ -400,25 +484,39 @@ class PPO:
         torch._foreach_mul_(grads, torch.where(
             keep, 1.0, torch.full_like(norm, self.cfg.max_grad_norm)))
 
-    def minibatch_step(self, ts: TrainState, mb, params):
+    def minibatch_step(self, ts: TrainState, mb, params, adv_all=None):
         """One clipped update of ``ts``'s params (``params``, in order)
-        on minibatch ``mb``; returns its five losses."""
+        on minibatch ``mb`` (a rank's part of the minibatch whose
+        advantages are ``adv_all``, when sharded); returns its five
+        losses. Sharded, the gradients are averaged over the ranks in one
+        all_reduce of one flat buffer before the clip."""
         ts.opt.zero_grad()
-        total, aux = self.loss(ts.net, mb)
+        total, aux = self.loss(ts.net, mb, adv_all)
         total.backward()
         with torch.no_grad():
+            if ts.mesh is not None:
+                grads = [p.grad for p in params]
+                flat = ts.mesh.all_reduce(
+                    torch.cat([g.reshape(-1) for g in grads]))
+                flat /= ts.mesh.world
+                torch._foreach_copy_(grads, [
+                    v.view_as(g) for v, g in zip(
+                        flat.split([g.numel() for g in grads]), grads)])
             self._clip_grads(params)
         ts.opt.step(self.lr_at(ts.opt.count, ts.lr_scale))
         return aux.detach()
 
     def update(self, ts: TrainState, batch):
         """``epochs`` passes over ``batch`` = (obs, action, logp, value,
-        adv, ret), each flattened to (B, ...). Returns the (epochs,
-        n_minibatches, 5) losses."""
+        adv, ret), each flattened to (B, ...) (the global batch, on every
+        rank, when sharded: each rank then takes its part of every
+        minibatch). Returns the (epochs, n_minibatches, 5) losses
+        (averaged over the ranks)."""
         cfg = self.cfg
         B = batch[0].shape[0]
         n_mb = self.n_minibatches
         params = list(ts.net.parameters())
+        sh = self._sharding(ts)
         aux, stopped = [], False
         for _ in range(cfg.epochs):
             perm = self.draw_perm(ts, B)
@@ -426,13 +524,19 @@ class PPO:
                 n_mb, cfg.minibatch_size)
             ep_aux = []
             for idx in idxs:
+                adv_all = None
+                if sh is not None:
+                    adv_all, idx = batch[4][idx], sh.shard(idx)
                 mb = [x[idx] for x in batch]
                 if stopped:
                     with torch.no_grad():
-                        ep_aux.append(self.loss(ts.net, mb)[1])
+                        ep_aux.append(self.loss(ts.net, mb, adv_all)[1])
                     continue
-                ep_aux.append(self.minibatch_step(ts, mb, params))
-            aux.append(torch.stack(ep_aux))
+                ep_aux.append(self.minibatch_step(ts, mb, params, adv_all))
+            ep_aux = torch.stack(ep_aux)
+            if sh is not None:
+                ep_aux = ts.mesh.all_reduce(ep_aux) / ts.mesh.world
+            aux.append(ep_aux)
             if cfg.target_kl is not None and not stopped:
                 stopped = float(aux[-1][:, 3].mean()) > 1.5 * cfg.target_kl
         return torch.stack(aux)
@@ -441,12 +545,15 @@ class PPO:
         """One iteration (rollout + GAE + update); advances ``ts`` in
         place and returns (ts, IterStats)."""
         cfg = self.cfg
+        self._check_mesh(ts)
         traj, stats = self.rollout(ts)
         adv, ret = self.gae(ts, traj)
         B = self.steps_per_iter
-        flat = lambda x: x.reshape((B,) + x.shape[2:])
-        batch = [flat(traj.obs), flat(traj.action), flat(traj.logp),
-                 flat(traj.value), flat(adv), flat(ret)]
+        parts = (traj.obs, traj.action, traj.logp, traj.value, adv, ret)
+        if ts.mesh is not None:
+            # the global (horizon, n_envs, ...) trajectory, in env order
+            parts = _gather_columns(self._sharding(ts), parts, 1)
+        batch = [x.reshape((B,) + x.shape[2:]) for x in parts]
         aux = self.update(ts, batch)
         means = aux.reshape(-1, 5).mean(0)
         if cfg.adaptive_lr_kl and cfg.target_kl is not None:

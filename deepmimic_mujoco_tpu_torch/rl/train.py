@@ -137,23 +137,14 @@ def missing_render_modules() -> list:
     return [m for m in RENDER_MODULES if importlib.util.find_spec(m) is None]
 
 
-def main(argv=None):
-    args = parse_reason(argv)
-    missing = [] if args.no_render else missing_render_modules()
-    if missing:
-        # before any training: a failed evaluation is raised only at the end
-        raise ImportError(f"the eval dashboard needs {' and '.join(missing)}"
-                          ", which this Python lacks; pass --no-render")
-
-    import torch
-
+def build(args):
+    """(env, PPOConfig) that parsed ``args`` ask for, the env on
+    ``args.device``."""
     from deepmimic_mujoco_tpu_torch.envs import (
         DPCombinedEnv, DPCombinedEnvConfig, DPEnv,
     )
     from deepmimic_mujoco_tpu_torch.models.physics_model import RK4
-    from deepmimic_mujoco_tpu_torch.rl import checkpoint
-    from deepmimic_mujoco_tpu_torch.rl.eval import ThreadedEvaluator
-    from deepmimic_mujoco_tpu_torch.rl.ppo import PPO, PPOConfig
+    from deepmimic_mujoco_tpu_torch.rl.ppo import PPOConfig
 
     eng_kw = {k: v for k, v in dict(
         warm_start_lam=args.warm_start_lam,
@@ -189,6 +180,24 @@ def main(argv=None):
                         log_std_min=args.log_std_min,
                         adaptive_lr_kl=args.adaptive_lr,
                         init_log_std=args.init_log_std)
+    return env, cfg
+
+
+def main(argv=None):
+    args = parse_reason(argv)
+    missing = [] if args.no_render else missing_render_modules()
+    if missing:
+        # before any training: a failed evaluation is raised only at the end
+        raise ImportError(f"the eval dashboard needs {' and '.join(missing)}"
+                          ", which this Python lacks; pass --no-render")
+
+    import torch
+
+    from deepmimic_mujoco_tpu_torch.rl import checkpoint
+    from deepmimic_mujoco_tpu_torch.rl.eval import ThreadedEvaluator
+    from deepmimic_mujoco_tpu_torch.rl.ppo import PPO
+
+    env, cfg = build(args)
     ppo = PPO(env, cfg)
     init_params = None
     if args.init_params:

@@ -507,6 +507,42 @@ def test_cli_renders_dashboard_on_card(cuda_device, tmp_path, monkeypatch):
         assert os.path.getsize(os.path.join(videos, name)) > 0
 
 
+@pytest.mark.gpu
+def test_world1_nccl_on_card_matches_unsharded(cuda_device, tmp_path):
+    """One PPO iteration of G1 walk envs over a one-rank NCCL group on the
+    card (``parallel.shard_train_state``, every collective run) against
+    the unsharded iteration on the card from the same seed: stats and
+    params as tests/test_multichip.py holds them, one launch a step."""
+    from deepmimic_mujoco_tpu_torch.parallel import mesh as mesh_lib
+    from deepmimic_mujoco_tpu_torch.parallel import shard_train_state
+
+    cfg = PPOConfig(n_envs=8, horizon=4, minibatch_size=16, epochs=2,
+                    net_arch=(16,), total_timesteps=32)
+    ppo = PPO(DPEnv(motion="walk", robot="unitree_g1", device=cuda_device),
+              cfg)
+    ts, st = ppo.train_iter(ppo.init(seed=2))
+    mesh = mesh_lib.init_group(0, 1, f"file://{tmp_path}/store",
+                               device="cuda")
+    try:
+        assert mesh.backend == "nccl"
+        ts1 = shard_train_state(ppo.init(seed=2), mesh)
+        before = fs.fused_solve.launches
+        ts1, st1 = ppo.train_iter(ts1)
+        launches = fs.fused_solve.launches - before
+    finally:
+        torch.distributed.destroy_process_group()
+    assert launches == cfg.horizon
+    n_mb = cfg.n_envs * cfg.horizon // cfg.minibatch_size
+    assert mesh.counts["all_reduce"] == 2 + cfg.epochs * (n_mb + 1)
+    for k in ("pg_loss", "v_loss", "entropy", "approx_kl", "mean_reward"):
+        a, b = float(getattr(st, k)), float(getattr(st1, k))
+        assert abs(a - b) <= 1e-4 * max(1.0, abs(a)), (k, a, b)
+    for (k, a), b in zip(ts.net.state_dict().items(),
+                         ts1.net.state_dict().values()):
+        scale = max(float(a.abs().max()), 1e-3)
+        assert float((a - b).abs().max()) / scale < 5e-4, k
+
+
 def test_check_fits_names_the_limit():
     """The error an engine on the card raises when no compiled plan holds
     its solve names the largest max_contacts that fits (runs anywhere)."""

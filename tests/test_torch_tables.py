@@ -214,7 +214,9 @@ def test_port_imports_no_jax_side_module():
                 "rl/extracted_policy.py", "envs/gym_wrapper.py",
                 "tools/play.py", "tools/probe.py", "tools/profiling.py",
                 "native/__init__.py", "tools/render.py", "tools/view.py",
-                "tools/check_debug_log.py", "tools/retarget.py"):
+                "tools/check_debug_log.py", "tools/retarget.py",
+                "parallel/__init__.py", "parallel/mesh.py",
+                "parallel/dryrun.py"):
         assert mod in scanned, mod
     bad = []
     for path in srcs:
