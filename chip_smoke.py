@@ -18,9 +18,11 @@ Phases, each printed with its seconds:
   3. main path: a batch of 2048 humanoid3d walk envs under a seeded
      ActorCritic that samples actions. First the kernel's inputs of one
      step (the contact-Jacobian parts) are recorded; the parts entry is
-     held against build_jt + its plain version on them (scaled by the
-     batch's and by each env's largest value, beside what a wrong
-     kernel would read), both are timed
+     held against build_jt + its plain version on them, evaluated in
+     float64 (scaled by the batch's and by each env's largest value,
+     beside what a wrong kernel would read and the float32 plain
+     version's own distance), the kernel and the float32 plain version
+     are timed
      with CUDA events beside the bound, and the clock variant gives the
      kernel's cycles per phase. A 16-env subset of that step is held
      against the CPU path. Then the counts are zeroed and the envs take
@@ -108,7 +110,12 @@ Phases, each printed with its seconds:
      the handoff-row gathers, replicas equal bit for bit, env-steps/s.
      On a machine with several cards (``--data-parallel``, which runs
      the build and this phase alone), a world of every card over NCCL
-     is held the same way. Then the kernel held and timed on rank 0's
+     is held the same way. Each spawned world's ranks then save their
+     state after the iteration (rl/checkpoint.py: every rank gathers its
+     env rows, rank 0 writes, a barrier), printing the gathers' bytes
+     and seconds, and the file, restored unsharded here, must equal the
+     ranks' state (their env rows in rank order, rank 0's replicated
+     leaves) bit for bit. Then the kernel held and timed on rank 0's
      first-step inputs (B 1024, G1 plan)
  14. gate replays, each in a process of its own (``--replay NAME``),
      all started together (each is host-bound), with mean actions; a
@@ -153,6 +160,24 @@ Phases, each printed with its seconds:
        build/ and validate_clip of it on the card (mean > 0.9; its steps
        force the state, so the kernel launches 0 times)
      The play_combined replay renders every 4th step (--video).
+ 15. fine-tune recipes: the training CLI's main() on the two recorded
+     fine-tune recipes, warm-started from the JAX package's params
+     directories as tools/export_params.py --all exports them into
+     deepmimic_mujoco_tpu_torch/data/: r5b (tools/train_queue_r5b.sh,
+     the combined env with the handoff buffer, from combined_r4_best)
+     and F2 (tools/train_queue_r5c.sh, G1 run from the G1 walk best, no
+     warm start of the solve, one subcapsule per mesh link), each at
+     2048 x 128, 10 epochs x 64 minibatches of 4096, net (256, 128), for
+     two iterations (the callback's evaluation at iteration 0 runs
+     beside them). Per recipe: the net before the first update equals
+     the exported file bit for bit with log_std reset; the engine's
+     options and the first step's solve (plan, K, L; for F2 lam0 = 0);
+     the kernel held against its plain version on those inputs and
+     timed, as in phase 3; 128 launches per iteration in the training
+     thread; per iteration env-steps/s with the rollout and the update
+     apart, finite losses, KL and clip fraction, and r/step, ep_len and
+     KL beside the JAX package's log of the same recipe (printed, not
+     held); for r5b the handoff buffer holds rows afterwards
 
 Then one JSON line per kernel table, and as the last line the result
 object. Exits non-zero, printing no result, when no CUDA device is
@@ -252,6 +277,33 @@ TOL_DP_PARAM = 5e-4      # max|d| / max(max|p|, 1e-3), the same test
 # (PERF.md section 6, the data-parallel slice; a world of every card,
 # where there are several, takes world 2's); printed, not held
 DP_PREDICTED = {1: (0.0, 0.0), 2: (1e-3, 1e-3)}
+# the recorded fine-tune recipes (tools/train_queue_r5b.sh:11-19, and
+# tools/train_queue_r5c.sh:22-33, leg F2) through the training CLI at
+# their widths (2048 x 128, 10 epochs x 64 minibatches of 4096, net (256,
+# 128)) for two iterations, each warm-started from the JAX package's
+# params directory as tools/export_params.py --all exports it. Per
+# recipe: its own flags, the exported file, the reset log_std, and the
+# JAX package's log of the same recipe, iterations 0 and 1 (r/step,
+# ep_len, kl; runs/q_r5_combined_hbuf.log, runs/q_r5_run_cold_F2.log):
+# other random streams, so printed beside, not held
+RECIPE_WIDTHS = (2048, 128, 4096, 10)    # n_envs, horizon, minibatch, epochs
+RECIPE_ITER = RECIPE_WIDTHS[0] * RECIPE_WIDTHS[1]
+RECIPE_ARGV = ["--no-wandb", "--no-render", "--adaptive-lr", "--target-kl",
+               "0.012", "--epochs", "10", "--log-std-min", "-1.5",
+               "--eval-every", "4000000", "--horizon", "128", "--total",
+               str(2 * RECIPE_ITER)]
+RECIPES = {
+    "r5b": (["--env", "dp_combined_env", "--handoff-buffer", "0.25",
+             "--handoff-rsi", "0.1", "--rsi-random-pa", "--lr", "1e-4"],
+            "combined_r4_best_params.pt", -1.2,
+            ((0.035, 90.0, 0.0172), (0.014, 148.1, 0.0195))),
+    "f2": (["--env", "deep_mimic_mujoco", "--motion", "run", "--robot",
+            "unitree_g1", "--no-warm-start-lam", "--mesh-subcapsules", "1",
+            "--alive-bonus", "0.3", "--alive-bonus-decay", "120000000",
+            "--vel-shaping", "0.4", "--lr", "2.5e-4"],
+           "g1_walk_best_params.pt", -0.7,
+           ((0.030, 18.5, 0.0174), (0.028, 18.6, 0.0169))),
+}
 
 
 def check(cond, msg):
@@ -354,29 +406,42 @@ def capture_parts(env, state, action):
 
 def kernel_on_main_path(label, card, args, kw):
     """Hold the parts entry against build_jt + the plain version on the
-    main path's inputs, then time both (plain, kernel, kernel, plain).
-    Returns the numbers of the kernels line."""
+    main path's inputs, evaluated in float64 (the function's value: the
+    float32 plain version carries its own rounding, which the 50 sweeps
+    of a partial solve can amplify on a sensitive system; it is printed
+    beside), then time the kernel and the float32 plain version (plain,
+    kernel, kernel, plain). Returns the numbers of the kernels line."""
+    import torch
+
     from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
 
     plain_kw = {k: v for k, v in kw.items() if k != "ld_idx"}
-    M, parts, vec = args[0], args[1:7], args[7:]
 
-    def plain():   # build_jt + the plain version: the CPU path's function
-        return fs.fused_solve_plain(M, fs.build_jt(*parts, kw["ld_idx"]),
-                                    *vec, **plain_kw)
+    # build_jt + the plain version: the CPU path's function
+    def plain(a=args):
+        return fs.fused_solve_plain(
+            a[0], fs.build_jt(*a[1:7], kw["ld_idx"]), *a[7:], **plain_kw)
 
     got = fs.fused_solve_parts(*args, **kw)
-    ref = plain()
+    ref = plain([a.to(torch.float64) for a in args])
+    ref32 = plain()
     names = ("qacc", "qfrc", "lam")
     max_abs = max(float((a - b).abs().max()) for a, b in zip(ref, got))
     errs = {k: scaled_err(a, b) for k, a, b in zip(names, ref, got)}
     env_errs = {k: env_scaled_err(a, b) for k, a, b in zip(names, ref, got)}
-    B, nv = M.shape[:2]
-    print(f"kernel vs plain on the {label} main path's first-step inputs "
-          f"(B={B}): max_abs={max_abs:.3e}; scaled by the batch's max "
+    B, nv = args[0].shape[:2]
+    print(f"kernel vs plain (float64) on the {label} main path's first-step "
+          f"inputs (B={B}): max_abs={max_abs:.3e}; scaled by the batch's max "
           + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
           + "; scaled by each env's max "
           + " ".join(f"{k}={v:.2e}" for k, v in env_errs.items()))
+    print("  beside it, each env scaled by its max: the plain version in "
+          "float32 vs float64 " + " ".join(
+              f"{k}={env_scaled_err(a, b):.2e}"
+              for k, a, b in zip(names, ref, ref32))
+          + "; the kernel vs the plain version in float32 " + " ".join(
+              f"{k}={env_scaled_err(a, b):.2e}"
+              for k, a, b in zip(names, ref32, got)))
     # what a wrong kernel would read: another env's results, or an error
     # as large as the output's mean |entry| in one entry of every env
     for k, r in zip(names, ref):
@@ -394,8 +459,8 @@ def kernel_on_main_path(label, card, args, kw):
               f"the {TOL_KERNEL} limit would pass a wrong {k}: {wrong}")
     check(all(v < TOL_KERNEL for v in errs.values())
           and all(v < TOL_KERNEL for v in env_errs.values()),
-          f"kernel disagrees with plain on {label} main-path inputs: {errs} "
-          f"{env_errs}")
+          f"kernel disagrees with plain (float64) on {label} main-path "
+          f"inputs: {errs} {env_errs}")
     ker = lambda: fs.fused_solve_parts(*args, **kw)
     p1, k1, k2, p2 = (time_ms(plain, 3), time_ms(ker, 20),
                       time_ms(ker, 20), time_ms(plain, 3))
@@ -648,7 +713,30 @@ def dp_update(ppo, batch, mesh=None, perturb=0.0):
             time.perf_counter() - t)
 
 
-def dp_iteration(ppo, mesh=None, batch=None, perturb=0.0):
+def state_leaves(ts) -> dict:
+    """Every leaf the train-state checkpoint holds, on the CPU, by name;
+    the env-indexed ones under ``env.``."""
+    import torch
+
+    c = lambda x: x.detach().cpu().clone()
+    out = {f"env.{k}": c(v) for k, v in ts.env_states._asdict().items()}
+    out.update({f"env.{k}": c(getattr(ts, k))
+                for k in ("last_obs", "ep_return", "ep_length")})
+    out.update({f"net.{k}": c(v) for k, v in ts.net.state_dict().items()})
+    for name in ("mu", "nu"):
+        out.update({f"opt.{name}{i}": c(x)
+                    for i, x in enumerate(getattr(ts.opt, name))})
+    out["opt.count"] = torch.tensor(ts.opt.count)
+    out.update({f"gen.{k}": g.get_state() for k, g in ts.gens.items()})
+    out["global_step"] = torch.tensor(ts.global_step)
+    out["lr_scale"] = torch.tensor(ts.lr_scale, dtype=torch.float64)
+    if ts.handoff_buf is not None:
+        out.update({f"buf.{k}": c(v)
+                    for k, v in ts.handoff_buf._asdict().items()})
+    return out
+
+
+def dp_iteration(ppo, mesh=None, batch=None, perturb=0.0, save_path=None):
     """The data-parallel phase's runs of one rank (or, without ``mesh``,
     of the unsharded trainer), each from ``dp_fresh``: with ``batch`` (a
     flattened rollout batch), the update alone on it for one epoch (the
@@ -658,7 +746,10 @@ def dp_iteration(ppo, mesh=None, batch=None, perturb=0.0):
     seconds), and the iteration's stats, five mean losses, params,
     launches, wall seconds, collectives, gathers (dim, bytes this rank
     sends, seconds), first step (the obs after it and the sampled
-    action, every env) and, unsharded, its batch."""
+    action, every env) and, unsharded, its batch. With ``save_path``
+    (sharded), the state after the iteration is then saved there through
+    ``rl/checkpoint.py:save``: its seconds, collectives and this rank's
+    ``state_leaves``."""
     import dataclasses
 
     import torch
@@ -725,19 +816,73 @@ def dp_iteration(ppo, mesh=None, batch=None, perturb=0.0):
         res["replicas_equal"] = all(rep.check(x) for x in (
             *ts.net.parameters(), *ts.opt.mu, *ts.opt.nu,
             *ts.handoff_buf, *(g.get_state() for g in ts.gens.values())))
+        if save_path is not None:
+            from deepmimic_mujoco_tpu_torch.rl import checkpoint
+
+            before = dict(mesh.counts)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            checkpoint.save(save_path, ts)
+            torch.cuda.synchronize()
+            res["save"] = dict(
+                seconds=time.perf_counter() - t,
+                counts={k: v - before[k] for k, v in mesh.counts.items()},
+                state=state_leaves(ts))
     return res
 
 
-def dp_rank(mesh, batch_path):
+def dp_rank(mesh, batch_path, save_path):
     """A rank of the data-parallel phase's world 2 (``parallel.dryrun.
-    launch``): the CLI's PPO on this rank's card, its half of the envs."""
+    launch``): the CLI's PPO on this rank's card, its half of the envs,
+    saving the state after the iteration to ``save_path``."""
     import torch
 
     from deepmimic_mujoco_tpu_torch.utils.device import fp32_physics
 
     fp32_physics()
     batch = torch.load(batch_path, weights_only=True)
-    return dp_iteration(dp_ppo(mesh.device), mesh, batch)
+    return dp_iteration(dp_ppo(mesh.device), mesh, batch,
+                        save_path=save_path)
+
+
+def dp_save_round_trip(ppo, world, ranks, path, card) -> dict:
+    """The state a world's ranks saved at ``path``, restored unsharded
+    here into a fresh ``PPO.init``, against the state they held: their
+    env rows in rank order and rank 0's replicated leaves, bit for
+    bit."""
+    import torch
+
+    from deepmimic_mujoco_tpu_torch.rl import checkpoint
+
+    local = [r["save"]["state"] for r in ranks]
+    want = {k: (torch.cat([x[k] for x in local]) if k.startswith("env.")
+                else v) for k, v in local[0].items()}
+    got = state_leaves(checkpoint.restore(path, ppo.init(seed=DP_SEED + 1)))
+    differ = sorted(k for k, v in want.items()
+                    if k not in got or v.shape != got[k].shape
+                    or not torch.equal(v, got[k]))
+    counts = ranks[0]["save"]["counts"]
+    n_env = sum(k.startswith("env.") for k in want)
+    print(f"world {world} save round trip on {card}: each rank gathered "
+          f"{counts['all_gather']} env-indexed leaves ({counts['bytes']} "
+          f"bytes sent by rank 0), then a barrier ("
+          + ", ".join(f"rank {r}: {x['save']['seconds']:.4f} s"
+                      for r, x in enumerate(ranks))
+          + f"); rank 0 wrote {os.path.getsize(path)} bytes; restored "
+          f"unsharded here: {len(want) - len(differ)} of {len(want)} leaves "
+          f"({n_env} env-indexed, {want['env.last_obs'].shape[0]} envs) "
+          "equal to the ranks' gathered state bit for bit"
+          + (f"; DIFFER: {differ}" if differ else ""))
+    check(not differ and set(got) == set(want),
+          f"world {world}: the restored state differs in {differ}")
+    check(all(x["save"]["counts"]["all_gather"] == n_env
+              and x["save"]["counts"]["barrier"] == 1 for x in ranks),
+          f"world {world}: the save's collectives "
+          f"{[x['save']['counts'] for x in ranks]}")
+    return dict(leaves=len(want), env_leaves=n_env,
+                gather_bytes_rank0=counts["bytes"],
+                seconds=[x["save"]["seconds"] for x in ranks],
+                file_bytes=os.path.getsize(path))
 
 
 def dp_diffs(ref, got) -> dict:
@@ -854,16 +999,22 @@ def data_parallel(card, dev):
           + ("one card, and NCCL refuses two ranks on one device; a "
              "correctness path, not a scaling number" if n_cards == 1 else
              f"its ranks on cards 0 and 1 of {n_cards}"))
+    save_path = lambda w: os.path.join(out_dir, f"world{w}_state.pt")
     tw = time.perf_counter()
-    w2 = dryrun.launch(dp_rank, 2, args=(batch_path,), device=dev,
-                       backend="gloo")
+    w2 = dryrun.launch(dp_rank, 2, args=(batch_path, save_path(2)),
+                       device=dev, backend="gloo")
     w2_s = time.perf_counter() - tw
     worlds = [(1, [w1]), (2, w2)]
     if n_cards > 1:
         # every card a rank of its own, over NCCL
-        worlds.append((n_cards, dryrun.launch(dp_rank, n_cards,
-                                              args=(batch_path,),
-                                              device=dev)))
+        worlds.append((n_cards, dryrun.launch(
+            dp_rank, n_cards, args=(batch_path, save_path(n_cards)),
+            device=dev)))
+    # the sharded save (rl/checkpoint.py): the state after each spawned
+    # world's iteration, restored unsharded here
+    saves = {f"world{w}": dp_save_round_trip(ppo, w, ranks, save_path(w),
+                                             card)
+             for w, ranks in worlds[1:]}
     held = {}
     for world, ranks in worlds:
         for r, got in enumerate(ranks):
@@ -931,6 +1082,7 @@ def data_parallel(card, dev):
                         spi / max(g["wall_s"] for g in rs)
                     for w, rs in worlds}},
                 all_reduce_per_iteration=w2[0]["counts"]["all_reduce"],
+                save_round_trip=saves,
                 trajectory_gather=[g for g in w2[0]["gathers"]
                                    if g[0] == 1][0][1:])
 
@@ -1414,14 +1566,20 @@ def update_step_profile(ppo, ts, card):
     return mb_ms
 
 
-def ppo_training(card, dev, argv, out_name, env=None):
-    """Phases 5 and 8: the CLI's main() on ``argv`` for two iterations.
-    With ``env``, then the checkpoint round trip and the update profile.
-    Returns the kernel launches of each iteration in the training thread,
-    read from the kernel's per-thread count (the CLI's evaluator thread
-    launches it too, and keeps its own count), the evaluator's launches
-    and the handoff buffer's row count after each iteration (None without
-    a buffer)."""
+def ppo_training(card, dev, argv, out_name, env=None,
+                 widths=(2048, 64, 4096, 20), first=None):
+    """Phases 5, 8 and 15: the CLI's main() on ``argv`` for two
+    iterations at ``widths`` (n_envs, horizon, minibatch, epochs; net
+    (256, 128)). With ``env``, then the checkpoint round trip and the
+    update profile. With ``first`` (a dict), the env, the net's params
+    just before the first iteration and the kernel's inputs of its first
+    step in the training thread are stored in it. Returns {"launches":
+    the kernel launches of each iteration in the training thread, read
+    from the kernel's per-thread count (the CLI's evaluator thread
+    launches it too, and keeps its own count), "eval_launches": the
+    evaluator's, "handoff": the handoff buffer's row count after each
+    iteration (None without a buffer), "iters": the iterations' metrics
+    rows, "seconds": (rollout, update, iteration) of each}."""
     import glob
     import math
     import threading
@@ -1429,6 +1587,7 @@ def ppo_training(card, dev, argv, out_name, env=None):
     import torch
 
     from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
+    from deepmimic_mujoco_tpu_torch.physics import solver
     from deepmimic_mujoco_tpu_torch.rl import checkpoint, ppo as ppo_mod
     from deepmimic_mujoco_tpu_torch.rl.train import main as train_main
 
@@ -1440,12 +1599,24 @@ def ppo_training(card, dev, argv, out_name, env=None):
     # thread's launch count is zeroed just before each iteration and
     # read just after it
     times = []
+    parts_entry = solver.fused_solve_parts
+
+    def record_first_solve(*args, **kw):
+        # the first solve of the first iteration in the training thread
+        if ("solve" not in first and "params" in first
+                and threading.get_ident() == me):
+            first["solve"] = ([a.clone() for a in args], dict(kw))
+        return parts_entry(*args, **kw)
 
     def timed(name, fn):
         def wrapper(self, ts, *a, **k):
             torch.cuda.synchronize()
             if name == "train_iter":
                 by_thread[me] = 0
+                if first is not None and "params" not in first:
+                    first["env"] = self.env
+                    first["params"] = {k: v.detach().clone() for k, v in
+                                       ts.net.state_dict().items()}
             t = time.perf_counter()
             out = fn(self, ts, *a, **k)
             torch.cuda.synchronize()
@@ -1458,12 +1629,15 @@ def ppo_training(card, dev, argv, out_name, env=None):
                  for n in ("rollout", "update", "train_iter")}
     for n, fn in originals.items():
         setattr(ppo_mod.PPO, n, timed(n, fn))
+    if first is not None:
+        solver.fused_solve_parts = record_first_solve
     try:
         argv = [*argv, "--out", out_dir]
         print("python -m deepmimic_mujoco_tpu_torch.rl.train "
               + " ".join(repr(a) if " " in a else a for a in argv))
         before = dict(by_thread)
         ts = train_main(argv)
+        solver.fused_solve_parts = parts_entry
         cli_times = list(times)
         iter_launches = [t[2] for t in cli_times if t[0] == "train_iter"]
         # main() has stopped its evaluator; its thread's launches
@@ -1477,8 +1651,8 @@ def ppo_training(card, dev, argv, out_name, env=None):
             ("lr", "learning_rate"), ("total_timesteps",
                                       "total_timesteps"))})
         check((cfg.n_envs, cfg.horizon, cfg.minibatch_size, cfg.epochs)
-              == (2048, 64, 4096, 20) and tuple(rows[0]["config"]["arch"])
-              == (256, 128), f"not the CLI's default widths: {cfg}")
+              == tuple(widths) and tuple(rows[0]["config"]["arch"])
+              == (256, 128), f"not the widths {widths}: {cfg}")
         iters = [r for r in rows if "pg_loss" in r]
         check(len(iters) == 2, f"{len(iters)} iterations logged, not 2")
         per_it = [t for t in cli_times if t[0] == "train_iter"]
@@ -1514,8 +1688,12 @@ def ppo_training(card, dev, argv, out_name, env=None):
         check(eval_launches == eval_steps,
               f"{eval_launches} evaluator launches in {eval_steps} steps")
         handoff = [r.get("handoff_count") for r in iters]
+        result = dict(launches=iter_launches, eval_launches=eval_launches,
+                      handoff=handoff, iters=iters, seconds=[
+                          (r[1], u[1], i[1])
+                          for r, u, i in zip(roll, upd, per_it)])
         if env is None:
-            return iter_launches, eval_launches, handoff
+            return result
         ppo = ppo_mod.PPO(env, cfg)
         init = ppo.make_net(torch.Generator().manual_seed(0)).state_dict()
         moved = max(float((v.to(dev) - ts.net.state_dict()[k]).abs().max())
@@ -1545,10 +1723,97 @@ def ppo_training(card, dev, argv, out_name, env=None):
         check(launches == [cfg.horizon] * 2,
               f"launches per resumed/continued iteration: {launches}")
     finally:
+        solver.fused_solve_parts = parts_entry
         for n, fn in originals.items():
             setattr(ppo_mod.PPO, n, fn)
     update_step_profile(ppo, ts, card)
-    return iter_launches, eval_launches, handoff
+    return result
+
+
+def finetune_recipe(card, dev, name):
+    """Phase 15: recipe ``name`` of RECIPES through the CLI's main() for
+    two iterations (``ppo_training``): the net before the first update
+    against the exported file, the engine's options, the kernel held and
+    timed on the first step's inputs, the iterations beside the JAX
+    package's log. Returns the numbers of the kernels line."""
+    import math
+
+    import torch
+
+    from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
+    from deepmimic_mujoco_tpu_torch.physics.collision import (
+        build_pair_tables,
+    )
+    from deepmimic_mujoco_tpu_torch.rl import checkpoint
+
+    flags, params_file, log_std, jax_log = RECIPES[name]
+    path = os.path.join(REPO, "deepmimic_mujoco_tpu_torch", "data",
+                        params_file)
+    argv = [f"chip smoke {name}", *flags, *RECIPE_ARGV, "--init-params",
+            path, "--reset-log-std", str(log_std)]
+    first = {}
+    run = ppo_training(card, dev, argv, f"finetune_{name}_smoke",
+                       widths=RECIPE_WIDTHS, first=first)
+    # before the first update: the export, bit for bit, log_std reset
+    want, got = checkpoint.restore_params(path), first["params"]
+    moved = sorted(k for k, v in want.items() if k != "log_std"
+                   and not torch.equal(v, got[k].cpu()))
+    reset = torch.equal(got["log_std"].cpu(),
+                        torch.full_like(want["log_std"], log_std))
+    print(f"{name}: the net before the first update against "
+          f"data/{params_file}: {len(want) - 1 - len(moved)} of "
+          f"{len(want) - 1} tensors equal bit for bit, log_std "
+          + (f"reset to {log_std}" if reset else "NOT reset"))
+    check(not moved and reset, f"{name}: the warm start differs: {moved}, "
+          f"log_std reset {reset}")
+    env = first["env"]
+    eng = env.engine
+    args, kw = first["solve"]
+    B, nv = args[0].shape[:2]
+    n = 3 * kw["K"] + kw["L"]
+    plan = fs.launch_plan(nv, n, kw["K"])
+    lam0_zero = bool((args[-1] == 0).all())
+    tables = [len(g.g1) for g in eng.tables]
+    one_cap = tables == [len(g.g1) for g in build_pair_tables(env.model, 1)]
+    print(f"{name}: engine warm_start_lam {eng.warm_start_lam}, pair "
+          f"tables {tables} ({'one subcapsule' if one_cap else 'not one'} "
+          f"per mesh link); the first step's solve: B {B}, nv {nv}, K "
+          f"{kw['K']}, L {kw['L']}, n {n}, plan {plan.tr} x {plan.tc}, lam0 "
+          + ("zero" if lam0_zero else
+             f"nonzero (max |lam0| {float(args[-1].abs().max()):.4g})"))
+    check((B, kw["K"], kw["L"]) == (RECIPE_WIDTHS[0], 24, 37),
+          f"{name}: the first solve at B {B}, K {kw['K']}, L {kw['L']}")
+    if name == "f2":
+        check(not eng.warm_start_lam and one_cap and lam0_zero,
+              f"{name}: not the F2 engine (warm start "
+              f"{eng.warm_start_lam}, tables {tables}, lam0 zero "
+              f"{lam0_zero})")
+    k = kernel_on_main_path(f"{name} recipe", card, args, kw)
+    sps = []
+    for i, (r, (rol, upd, it), (j_rew, j_len, j_kl)) in enumerate(zip(
+            run["iters"], run["seconds"], jax_log)):
+        sps.append(RECIPE_ITER / it)
+        print(f"{name} iteration {i} on {card}: {sps[-1]:.1f} env-steps/s "
+              f"(rollout {rol:.3f} s, update {upd:.3f} s); r/step "
+              f"{r['mean_reward']:.3f} ep_len {r['ep_length']:.1f} kl "
+              f"{r['approx_kl']:.4f} clip_frac {r['clip_frac']:.4f}; the "
+              f"JAX package's log of the recipe: r/step {j_rew} ep_len "
+              f"{j_len} kl {j_kl} (other random streams: printed, not "
+              "held)")
+        check(all(math.isfinite(r[x]) for x in (
+            "pg_loss", "v_loss", "entropy", "approx_kl", "clip_frac")),
+            f"{name}: non-finite statistics in iteration {i}: {r}")
+    if name == "r5b":
+        check(run["handoff"][-1] is not None and run["handoff"][-1] > 0,
+              f"r5b: handoff_count after the iterations {run['handoff']}")
+    return dict(launches=sum(run["launches"]),
+                launches_per_iteration=run["launches"],
+                evaluator_launches=run["eval_launches"], **k,
+                plan=f"{plan.tr}x{plan.tc}", L=kw["L"], lam0_zero=lam0_zero,
+                env_steps_per_s=sps, handoff_count=run["handoff"],
+                stats=[{x: r[x] for x in ("mean_reward", "ep_length",
+                                          "approx_kl", "clip_frac")}
+                       for r in run["iters"]])
 
 
 def sac_training(card):
@@ -1985,9 +2250,10 @@ def main():
     if not dashboard:
         print(f"PPO training with --no-render: the dashboard needs "
               f"{' and '.join(absent)}")
-    ppo_launches, eval_launches, _ = ppo_training(
+    ppo_run = ppo_training(
         card, dev, PPO_ARGV if dashboard else [*PPO_ARGV, "--no-render"],
         "ppo_smoke", env=g1)
+    ppo_launches, eval_launches = ppo_run["launches"], ppo_run["eval_launches"]
     if dashboard:
         videos = glob.glob(os.path.join(ppo_dir, "*_videos",
                                         "global_step_*.mp4"))
@@ -2072,8 +2338,10 @@ def main():
 
     # ---- 8. PPO on the combined env ---------------------------------------
     t0 = phase("PPO combined")
-    comb_ppo, comb_eval, comb_handoff = ppo_training(
-        card, dev, PPO_COMBINED_ARGV, "ppo_combined_smoke")
+    comb_run = ppo_training(card, dev, PPO_COMBINED_ARGV,
+                            "ppo_combined_smoke")
+    comb_ppo, comb_eval, comb_handoff = (
+        comb_run["launches"], comb_run["eval_launches"], comb_run["handoff"])
     check(comb_handoff[-1] is not None and comb_handoff[-1] > 0,
           f"handoff_count after the iterations: {comb_handoff}")
     done(t0, "PPO combined")
@@ -2274,22 +2542,29 @@ def main():
           f"{r['validate_launches']} launches")
     done(t0, "gate replays")
 
+    # ---- 15. fine-tune recipes ----------------------------------------
+    t0 = phase("fine-tune recipes")
+    recipes = {name: finetune_recipe(card, dev, name) for name in RECIPES}
+    done(t0, "fine-tune recipes")
+
     kernels = [{
         "name": "fused_solve",
         "route": "cuda",
         "source": "deepmimic_mujoco_tpu_torch/ops/csrc/fused_solve.cu",
         "replaces": "deepmimic_mujoco_tpu/ops/fused_solve.py:67",
-        # this slice's main path: data-parallel PPO, world 2 rank 0's
-        # iteration (G1 plan), B 1024 a rank
-        "launches": dp["launches"],
-        **{k: dp[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                              "bound_by")},
+        # this slice's main path: the F2 fine-tune recipe's two
+        # iterations (G1 plan, lam0 = 0, B 2048)
+        "launches": recipes["f2"]["launches"],
+        **{k: recipes["f2"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by")},
         "library_ms": None,
         "regs": info["h3d"]["regs"],
         "spills": spills,
         "smem_bytes": info["h3d"]["smem_bytes"],
         "blocks_per_sm": info["h3d"]["blocks_per_sm"],
         "paths": {
+            "finetune_f2": {**recipes["f2"], "library_ms": None},
+            "finetune_r5b": {**recipes["r5b"], "library_ms": None},
             "ppo_dp": {**dp, "library_ms": None},
             "sac_h3d_b256": {"launches": sum(sac_launches), **sac_k},
             "sac_train": {"launches": sum(sac_launches),

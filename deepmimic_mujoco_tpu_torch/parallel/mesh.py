@@ -99,7 +99,8 @@ class Mesh:
     group: Any = None           # the process group (None: the default)
     axis: str = "data"
     counts: Dict[str, int] = dataclasses.field(default_factory=lambda: {
-        "all_reduce": 0, "all_gather": 0, "broadcast": 0, "bytes": 0})
+        "all_reduce": 0, "all_gather": 0, "broadcast": 0, "barrier": 0,
+        "bytes": 0})
 
     def _on_wire(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` where the backend can send it: NCCL sends card tensors
@@ -137,6 +138,14 @@ class Mesh:
         if y is not x:
             x.copy_(y)
         return x
+
+    def barrier(self):
+        """Wait until every rank has reached this call."""
+        self.counts["barrier"] += 1
+        if self.backend == "nccl":
+            dist.barrier(group=self.group, device_ids=[self.device.index])
+        else:
+            dist.barrier(group=self.group)
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "data",

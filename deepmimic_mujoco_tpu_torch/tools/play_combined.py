@@ -2,8 +2,10 @@
 
 Warm-starts the state machine by force-tracking the current motion for
 the first ``--warmstart`` steps, then hands control to a policy (an actor
-``.npz``, ``rl/convert.py``'s format) or small random actions; prints
-transitions and the episode reward.
+``.npz``, ``rl/convert.py``'s format, or the port's params file of an
+``ActorCritic``, ``rl/checkpoint.py:save_params``, as
+``tools/export_params.py`` writes it from a JAX params directory) or
+small random actions; prints transitions and the episode reward.
 
 Robustness probe: ``--inject-fall-every N`` force-sets a facedown pose
 (getup clip frame 0, zero velocity) every N steps, once the policy is in
@@ -16,7 +18,7 @@ every 4th step with the motion's name, the step and the reward drawn on
 it (FK on the card, the ray tracer on the host).
 
 Usage: python -m deepmimic_mujoco_tpu_torch.tools.play_combined
-           [--checkpoint actor.npz] [--steps 2000] [--device cuda]
+           [--checkpoint actor.npz|params.pt] [--steps 2000] [--device cuda]
            [--inject-fall-every 400] [--assert-cycles 2]
 """
 from __future__ import annotations
@@ -63,7 +65,8 @@ def main(argv=None):
     completed recovery cycles."""
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--checkpoint", default=None,
-                   help="actor .npz (w0..bN, log_std)")
+                   help="actor .npz (w0..bN, log_std) or the port's "
+                        "params file")
     p.add_argument("--steps", type=int, default=2000)
     p.add_argument("--warmstart", type=int, default=500)
     p.add_argument("--video", default=None)
@@ -84,9 +87,16 @@ def main(argv=None):
     dev = env.device
     rng = np.random.default_rng(args.seed)
     if args.checkpoint:
+        from deepmimic_mujoco_tpu_torch.rl import checkpoint, networks
         from deepmimic_mujoco_tpu_torch.rl.convert import actor_from_npz
 
-        actor = actor_from_npz(args.checkpoint, device=dev)
+        if args.checkpoint.endswith(".npz"):
+            actor = actor_from_npz(args.checkpoint, device=dev)
+        else:
+            actor = networks.ActorCritic(env.obs_size, env.action_size,
+                                         device=dev)
+            actor.load_state_dict(checkpoint.restore_params(
+                args.checkpoint, actor.state_dict()))
         policy = lambda o: actor(o)[0]
     else:
         policy = lambda o: torch.as_tensor(rng.uniform(

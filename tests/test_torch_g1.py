@@ -210,36 +210,107 @@ def test_plane_mesh_vertex_table_pads_with_first_vertex(setup):
     assert tcol._hull_verts(tm, grp.g2).shape == (len(grp.g2), 32, 3)
 
 
+def _step_errs(je, te, step, qpos, qvel, ctrl, n_steps, lam0s=None,
+               ties=False, jax_cold=False):
+    """``n_steps`` of both engines from the same state and ctrl (the JAX
+    one through the jitted ``step``): the active contact slots must
+    agree at every step, position for position (with ``ties``, up to the
+    order of two active slots whose JAX depths lie within TIE: float32
+    rounding alone orders them); returns the scaled errors after the
+    last one. With ``lam0s`` (a list), the warm start the port's solve
+    receives at each step is appended to it. With ``jax_cold``, the JAX
+    step is given the empty carry at every step."""
+    B = len(qpos)
+    jq, jv = jnp.asarray(qpos), jnp.asarray(qvel)
+    jl = jl_empty = jnp.tile(je.empty_lam()[None], (B, 1))
+    tq_, tv, tl = torch.tensor(qpos), torch.tensor(qvel), te.empty_lam(B)
+    jc, tc = jnp.asarray(ctrl), torch.tensor(ctrl)
+    entry = tsolver.fused_solve_parts
+    if lam0s is not None:
+        tsolver.fused_solve_parts = lambda *a, **k: (
+            lam0s.append(a[-1].clone()) or entry(*a, **k))
+    try:
+        for _ in range(n_steps):
+            jq, jv, jd = step(jq, jv, jc, jl_empty if jax_cold else jl)
+            jl = jd.lam
+            tq_, tv, td = te.step(tq_, tv, tc, lam0=tl)
+            tl = td.lam
+            jdist = np.asarray(jd.contacts.dist)
+            act = jdist < np.asarray(jd.contacts.includemargin)
+            ws = np.asarray(jd.contacts.slot_idx)
+            gs = td.contacts.slot_idx.numpy()
+            if ties:
+                for e in range(B):
+                    assert sorted(gs[e][act[e]]) == sorted(ws[e][act[e]]), e
+                    for s in np.flatnonzero(act[e] & (gs[e] != ws[e])):
+                        j = np.flatnonzero(ws[e] == gs[e, s])[0]
+                        assert abs(jdist[e, j] - jdist[e, s]) < TIE, (e, s)
+            else:
+                np.testing.assert_array_equal(gs[act], ws[act])
+    finally:
+        tsolver.fused_solve_parts = entry
+    # the carried forces; the carried slot ids of inactive slots may
+    # differ at rounding ties (they carry zero force in both)
+    nl = 3 * K + 37
+    return {"qpos": _err(jq, tq_.numpy()), "qvel": _err(jv, tv.numpy()),
+            "qacc": _err(jd.qacc, td.qacc.numpy()),
+            "qfrc_constraint": _err(jd.qfrc_constraint,
+                                    td.qfrc_constraint.numpy()),
+            "lam": _err(np.asarray(jl)[:, :nl], tl.numpy()[:, :nl])}
+
+
 @pytest.mark.parametrize("n_steps", [1, 5])
 def test_g1_engine_steps_match(setup, jax_step, n_steps):
     _, _, je, te, qpos, qvel, ctrl = setup
     assert te.n_constraint_rows == je.n_constraint_rows == 3 * K + 37 == 109
     assert te.n_warm_rows == je.n_warm_rows
-    B = len(qpos)
-    step = jax_step
-    jq, jv = jnp.asarray(qpos), jnp.asarray(qvel)
-    jl = jnp.tile(je.empty_lam()[None], (B, 1))
-    tq_, tv, tl = torch.tensor(qpos), torch.tensor(qvel), te.empty_lam(B)
-    jc, tc = jnp.asarray(ctrl), torch.tensor(ctrl)
-    for _ in range(n_steps):
-        jq, jv, jd = step(jq, jv, jc, jl)
-        jl = jd.lam
-        tq_, tv, td = te.step(tq_, tv, tc, lam0=tl)
-        tl = td.lam
-        act = np.asarray(jd.contacts.dist) < np.asarray(
-            jd.contacts.includemargin)
-        np.testing.assert_array_equal(td.contacts.slot_idx.numpy()[act],
-                                      np.asarray(jd.contacts.slot_idx)[act])
-    # the carried forces; the carried slot ids of inactive slots may
-    # differ at rounding ties (they carry zero force in both)
-    nl = 3 * K + 37
-    errs = {"qpos": _err(jq, tq_.numpy()), "qvel": _err(jv, tv.numpy()),
-            "qacc": _err(jd.qacc, td.qacc.numpy()),
-            "qfrc_constraint": _err(jd.qfrc_constraint,
-                                    td.qfrc_constraint.numpy()),
-            "lam": _err(np.asarray(jl)[:, :nl], tl.numpy()[:, :nl])}
+    errs = _step_errs(je, te, jax_step, qpos, qvel, ctrl, n_steps)
     bad = {k: v for k, v in errs.items() if not v < TOL_STEP}
     assert not bad, bad
+
+
+# the engine options of the recorded fine-tune recipes and their
+# neighbour (tools/train_queue_r5c.sh: --no-warm-start-lam
+# --mesh-subcapsules 1); the default is 2 subcapsules, warm-started
+ENGINE_OPTIONS = {
+    "subcapsules_1": dict(mesh_subcapsules=1),
+    "subcapsules_3": dict(mesh_subcapsules=3),
+    "no_warm_start": dict(warm_start_lam=False),
+}
+
+
+@pytest.mark.parametrize("option", sorted(ENGINE_OPTIONS))
+def test_g1_engine_options_match(setup, jax_step, option):
+    """3 Euler steps of the 9 states under each option, against the JAX
+    package's engine (at one subcapsule a walk pose holds two active
+    contacts 1e-8 m deep, ordered by rounding). The subcapsule counts
+    change the pair tables, so the JAX engine is built with each. Without
+    the warm start the JAX step hands its forward no lam0
+    (``physics/step.py:311-313``), so the solve starts from zero forces,
+    which is what its default step (the module's compile) makes of the
+    empty carry: that is the reference, and the port's engine, built with
+    ``warm_start_lam=False`` and given the carried lam, must start its
+    solve from lam0 = 0 at every step."""
+    jm, tm, je, _, qpos, qvel, ctrl = setup
+    kw = ENGINE_OPTIONS[option]
+    cold = "warm_start_lam" in kw
+    if not cold:
+        je = JEngine(jm, max_contacts=K, integrator=EULER, **kw)
+    te = Engine(tm, max_contacts=K, integrator=EULER, device="cpu", **kw)
+    assert te.n_constraint_rows == je.n_constraint_rows == 109
+    assert [len(g.g1) for g in te.tables] == [len(g.g1) for g in je.tables]
+    lam0s = []
+    step = jax_step if cold else jax.jit(jax.vmap(je.step))
+    errs = _step_errs(je, te, step, qpos, qvel, ctrl, 3, lam0s, ties=True,
+                      jax_cold=cold)
+    bad = {k: v for k, v in errs.items() if not v < TOL_STEP}
+    assert not bad, bad
+    assert len(lam0s) == 3
+    warm = [float(x.abs().max()) for x in lam0s[1:]]
+    if cold:
+        assert warm == [0.0, 0.0]
+    else:
+        assert all(w > 0 for w in warm), warm
 
 
 def test_g1_parts_plain_matches_pallas_interpret(setup):

@@ -242,7 +242,12 @@ def test_port_imports_no_jax_side_module():
 def test_port_copies_no_asset():
     files = [p for p in _port_files() if "__pycache__" not in p]
     exts = {os.path.splitext(p)[1] for p in files}
-    assert exts <= {".py", ".cu", ".cpp", ".npz", ".json"}, exts
+    assert exts <= {".py", ".cu", ".cpp", ".npz", ".json", ".pt"}, exts
+    # the only torch files are params exported from the JAX package's
+    # checkpoints (tools/export_params.py), under data/
+    assert all(os.path.relpath(p, _PORT).startswith("data/")
+               and p.endswith("_params.pt") for p in files
+               if p.endswith(".pt"))
     # the only C++ is the ray tracer's source
     assert [os.path.relpath(p, _PORT) for p in files
             if p.endswith(".cpp")] == ["native/rasterizer.cpp"]
