@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --data-parallel     # the build and phase 13 only
+    python3 chip_smoke.py --contact-rich      # the build and phase 16 only
 
 Phases, each printed with its seconds:
   0. card: name and power limit (nvidia-smi), torch's device name, and
@@ -9,8 +10,10 @@ Phases, each printed with its seconds:
      absent one is left out, and the line says which
   1. build: nvcc of every kernel source of the main path and of the
      fused solve's phase-clock variant, all started together; ptxas's
-     registers and spills (any spill fails the run), and the blocks per
-     SM that the occupancy calculator gives at humanoid3d and G1 sizes
+     registers and spills (any spill fails the run), and the registers,
+     shared memory and blocks per SM that the occupancy calculator gives
+     at humanoid3d and G1 sizes: the register plans at 16 and 24 contact
+     slots, the shared-memory plan at G1 48 and 128, humanoid3d 128
   2. kernel vs plain: both fused-solve entries against the plain torch
      version on random systems (humanoid3d and G1 sizes, both cones,
      nonzero lam0, batch 2048 and 1000): the explicit-J^T entry on random
@@ -124,7 +127,9 @@ Phases, each printed with its seconds:
      - the humanoid3d walk gate actor from frame 20 and the three G1
        gate actors (walk and run from frame 20, getup from frame 0), each
        above its gate (90, 90, 90, 60) with no overflow, beside the JAX
-       replay
+       replay; and the G1 getup gate actor again at 128 contact slots
+       (``--replay g1_getup_k128``, the shared-memory plan; held in
+       phase 16)
      - the RK4 walk gate actor from frame 20 for 1000 steps: reward > 90,
        no overflow, 4 launches per step
      - the combined actor from the reset the JAX package draws from
@@ -178,6 +183,26 @@ Phases, each printed with its seconds:
      apart, finite losses, KL and clip fraction, and r/step, ep_len and
      KL beside the JAX package's log of the same recipe (printed, not
      held); for r5b the handoff buffer holds rows afterwards
+ 16. contact-rich: the kernel's shared-memory plan (the sizes no
+     register plan holds). (a) Both entries, both cones, on random
+     systems at B 2048 of G1 (nv 43, L 37) at 48, 64 and 128 contact
+     slots and humanoid3d (nv 34, L 28) at 32 and 128, held against the
+     plain version in float64 (by the batch and by each env, the float32
+     plain version's distance beside it) and timed beside the bound.
+     (b) The nine G1 states of tests/test_torch_g1.py's fixture (walk
+     poses, jittered and sunk ones, the prone getup pose sunk 6 cm)
+     tiled to B 2048, one Euler step at 128 slots: the active contacts,
+     no overflow (the prone env drops contacts at 24), the kernel held
+     and timed on the step's inputs as in phase 3, and the nine envs
+     against the port's CPU path (TOL_STEP). (c) 2048 G1 getup envs at
+     128 slots under a seeded ActorCritic, the kernel held on the first
+     step's inputs, then 64 step_auto_reset steps with the counts
+     zeroed: 64 launches, all of the shared-memory plan, no build_jt,
+     finite states; the overflow summed and env-steps/s beside the same
+     rollout at 24 slots and phase 4. (d) The kernel held at B 1 on the
+     getup gate actor's first step at 128 slots, and that gate's replay
+     from phase 14: reward > 60, no overflow, one launch per step,
+     beside the same actor at 24 slots
 
 Then one JSON line per kernel table, and as the last line the result
 object. Exits non-zero, printing no result, when no CUDA device is
@@ -258,7 +283,17 @@ PLAY_EXTRACTED_ARGV = ["--checkpoint", os.path.join(
     REPO, "deepmimic_mujoco_tpu_torch", "data", "run_extracted.npz"),
     "--motion", "run", "--robot", "unitree_g1", "--assert-reward", "90"]
 SWEEP_BATCHES = (256, 1024, 2048, 4096)
-REPLAYS = (*GATES, "combined", "rk4", "play_combined", "sac",
+# the contact-rich phase: the contact slots the shared-memory plan is
+# held at on the engine's paths, the random systems of its sizes (G1 nv
+# 43, L 37; humanoid3d nv 34, L 28), the G1 gate replayed at those slots
+# (beside the same actor at the default 24), and the rollout's clip
+CONTACT_RICH_K = 128
+CONTACT_RICH_RANDOM = (("g1", 43, 48, 37), ("g1", 43, 64, 37),
+                       ("g1", 43, 128, 37), ("h3d", 34, 32, 28),
+                       ("h3d", 34, 128, 28))
+GATES_K128 = {"g1_getup_k128": "g1_getup"}
+GETUP_MOTION = "getup_facedown_slow_FSI"
+REPLAYS = (*GATES, *GATES_K128, "combined", "rk4", "play_combined", "sac",
            "play_extracted_run", "render")
 RENDER_DIR = os.path.join(REPO, "build", "render_smoke")
 # the render job: the frames the viewer steps from each source, the
@@ -384,9 +419,9 @@ def time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def capture_parts(env, state, action):
-    """One full-batch env.step with the solver's parts entry recorded:
-    the kernel's inputs on the main path. Returns (args, kwargs)."""
+def capture_solve(fn):
+    """Call fn() with the solver's parts entry recorded: the kernel's
+    inputs of its first solve. Returns (args, kwargs)."""
     from deepmimic_mujoco_tpu_torch.physics import solver
 
     captured = []
@@ -398,10 +433,16 @@ def capture_parts(env, state, action):
 
     solver.fused_solve_parts = record
     try:
-        env.step(state, action)
+        fn()
     finally:
         solver.fused_solve_parts = parts_entry
     return captured[0]
+
+
+def capture_parts(env, state, action):
+    """One full-batch env.step with the solver's parts entry recorded:
+    the kernel's inputs on the main path. Returns (args, kwargs)."""
+    return capture_solve(lambda: env.step(state, action))
 
 
 def kernel_on_main_path(label, card, args, kw):
@@ -468,7 +509,7 @@ def kernel_on_main_path(label, card, args, kw):
     b_ms, b_by = fs.bound_ms(B, nv, kw["K"], kw["L"],
                              iterations=kw["iterations"], entry="parts")
     plan = fs.launch_plan(nv, 3 * kw["K"] + kw["L"], kw["K"])
-    print(f"fused_solve_parts {label} B={B} (plan {plan.tr} x {plan.tc}) on "
+    print(f"fused_solve_parts {label} B={B} (plan {plan.label}) on "
           f"{card}: kernel {k1:.4f} / {k2:.4f} ms, plain (build_jt + "
           f"fused_solve_plain) {p1:.4f} / {p2:.4f} ms, bound {b_ms:.4g} ms "
           f"({b_by}), {100 * b_ms / k_ms:.3g}% of the bound")
@@ -496,6 +537,7 @@ def rollout_counted(env, net, state, action, n_steps, g_rsi, g_act,
     build_jt = fs.build_jt
     fs.build_jt = lambda *a, **k: jt_builds.append(1) or build_jt(*a, **k)
     fs.fused_solve.launches = 0
+    fs.fused_solve.launches_by_plan.clear()
     try:
         tm = time.perf_counter()
         finite = torch.ones((), dtype=torch.bool, device=dev)
@@ -616,21 +658,26 @@ def replay_job(name):
     dev = torch.device("cuda")
     data = os.path.join(REPO, "deepmimic_mujoco_tpu_torch", "data")
     fs.fused_solve.launches = 0
+    fs.fused_solve.launches_by_plan.clear()
     t0 = time.perf_counter()
-    if name in GATES or name == "rk4":
+    if name in GATES or name in GATES_K128 or name == "rk4":
         if name == "rk4":
             actor_file, idx0, _, _ = RK4_GATE
             env = DPEnv(motion="walk", robot="humanoid3d", integrator=RK4,
                         device=dev)
         else:
-            actor_file, motion, robot, idx0, _, _ = GATES[name]
-            env = DPEnv(motion=motion, robot=robot, device=dev)
+            actor_file, motion, robot, idx0, _, _ = GATES[
+                GATES_K128.get(name, name)]
+            env = DPEnv(motion=motion, robot=robot, device=dev,
+                        max_contacts=(CONTACT_RICH_K if name in GATES_K128
+                                      else None))
         state, obs = env.reset(1, idx_init=idx0)
         actor = actor_from_npz(os.path.join(data, actor_file), device=dev)
         rews, ovs, lens, steps = replay_masked(
             env, lambda o: actor(o)[0], state, obs, 1000)
         res = dict(reward=float(rews[0]), overflow=int(ovs[0]),
-                   length=int(lens[0]), steps=steps)
+                   length=int(lens[0]), steps=steps,
+                   plans=dict(fs.fused_solve.launches_by_plan))
     elif name == "sac":
         # the SAC gate actor and the actor distilled in phase 11, as
         # envs 0 and 1 of one batch, under tanh(mean)
@@ -1778,7 +1825,7 @@ def finetune_recipe(card, dev, name):
     print(f"{name}: engine warm_start_lam {eng.warm_start_lam}, pair "
           f"tables {tables} ({'one subcapsule' if one_cap else 'not one'} "
           f"per mesh link); the first step's solve: B {B}, nv {nv}, K "
-          f"{kw['K']}, L {kw['L']}, n {n}, plan {plan.tr} x {plan.tc}, lam0 "
+          f"{kw['K']}, L {kw['L']}, n {n}, plan {plan.label}, lam0 "
           + ("zero" if lam0_zero else
              f"nonzero (max |lam0| {float(args[-1].abs().max()):.4g})"))
     check((B, kw["K"], kw["L"]) == (RECIPE_WIDTHS[0], 24, 37),
@@ -2007,45 +2054,286 @@ def sac_distill(card, env):
     return launches, k_numbers
 
 
-def main():
+def hold_random(card, dev, label, nv, K, L, B=2048):
+    """Phase 16 (a): both entries, both cones, on random systems of one
+    size (SPD M, contact-Jacobian parts, nonzero lam0), held against the
+    plain version evaluated in float64, scaled by the batch and by each
+    env (the float32 plain version's distance beside it); the elliptic
+    holds timed (kernel, kernel, plain, plain) beside the bound. Returns
+    the numbers of the kernels line."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 1
-    sys.path.insert(0, REPO)
+    from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
+
+    n = 3 * K + L
+    plan = fs.launch_plan(nv, n, K)
+    check(plan.shared, f"{label} K {K} is not the shared-memory plan")
+    args = [torch.as_tensor(a, device=dev)
+            for a in random_systems(B + K, B, nv, K, L)]
+    parts, ld_idx = random_parts(2 * B + K, B, nv, K, L)
+    parts = [torch.as_tensor(a, device=dev) for a in parts]
+    M, JT, vectors = args[0], args[1], args[2:]
+    names = ("qacc", "qfrc", "lam")
+    out = {"plan": plan.label, "smem_bytes": plan.smem_bytes,
+           "max_abs_err": 0.0, "explicit_max_abs_err": 0.0}
+    for pyr in (False, True):
+        kw = dict(K=K, L=L, iterations=50, pyramidal=pyr)
+        for entry in ("explicit", "parts"):
+            jt = JT if entry == "explicit" else fs.build_jt(*parts, ld_idx)
+            ker = ((lambda: fs.fused_solve(*args, **kw)) if entry == "explicit"
+                   else (lambda: fs.fused_solve_parts(
+                       M, *parts, *vectors, ld_idx=ld_idx, **kw)))
+            plain = lambda a=(M, jt, *vectors): fs.fused_solve_plain(*a, **kw)
+            got = ker()
+            torch.cuda.synchronize()
+            ref = plain([a.double() for a in (M, jt, *vectors)])
+            ref32 = plain()
+            errs = {k: scaled_err(a, b) for k, a, b in zip(names, ref, got)}
+            env_errs = {k: env_scaled_err(a, b)
+                        for k, a, b in zip(names, ref, got)}
+            e32 = max(env_scaled_err(a, b) for a, b in zip(ref, ref32))
+            max_abs = max(float((a - b).abs().max())
+                          for a, b in zip(ref, got))
+            key = "" if entry == "parts" else "explicit_"
+            out[f"{key}max_abs_err"] = max(out[f"{key}max_abs_err"],
+                                           max_abs)
+            print(f"{entry} {label} nv={nv} K={K} L={L} B={B} "
+                  f"{'pyramidal' if pyr else 'elliptic'} ({plan.label}) vs "
+                  f"plain (float64): scaled by the batch "
+                  + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+                  + "; by each env " + " ".join(
+                      f"{k}={v:.2e}" for k, v in env_errs.items())
+                  + f"; max_abs {max_abs:.2e}; the float32 plain version "
+                  f"by each env {e32:.2e}")
+            check(all(v < TOL_KERNEL for v in errs.values())
+                  and all(v < TOL_KERNEL for v in env_errs.values()),
+                  f"{entry} kernel disagrees with plain (float64) at "
+                  f"{label} K {K}: {errs} {env_errs}")
+            if pyr:
+                continue
+            p1, k1, k2, p2 = (time_ms(plain, 3), time_ms(ker, 10),
+                              time_ms(ker, 10), time_ms(plain, 3))
+            b_ms, b_by = fs.bound_ms(B, nv, K, L, 50, entry=entry)
+            k_ms = (k1 + k2) / 2
+            print(f"  {entry} {label} K={K} B={B} on {card}: kernel "
+                  f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
+                  f"bound {b_ms:.4g} ms ({b_by}), {100 * b_ms / k_ms:.3g}% "
+                  "of the bound")
+            out.update({f"{key}ms": k_ms, f"{key}plain_ms": (p1 + p2) / 2,
+                        f"{key}bound_ms": b_ms, f"{key}bound_by": b_by})
+    return out
+
+
+def nine_states(model):
+    """The nine G1 states of tests/test_torch_g1.py's fixture, made the
+    same way with the port's clip loader: four walk frames, four of them
+    jittered and sunk 0-4 cm, and the getup clip's first (prone) pose
+    sunk 6 cm; with the fixture's ctrl. Returns (qpos, qvel, ctrl), numpy
+    float32."""
+    import numpy as np
+
+    from deepmimic_mujoco_tpu_torch.mocap.loader import load_clip
+    from deepmimic_mujoco_tpu_torch.models import assets
+
+    walk = load_clip(assets.mocap_path("unitree_g1", "walk"), model)
+    getup = load_clip(assets.mocap_path("unitree_g1", GETUP_MOTION), model)
+    r = np.random.RandomState(0)
+    q = walk.qpos[np.arange(0, len(walk), len(walk) // 4)[:4]]
+    qp = q.copy()
+    qp[:, 7:] += r.uniform(-0.1, 0.1, qp[:, 7:].shape)
+    qp[:, 2] -= r.uniform(0.0, 0.04, len(qp))
+    prone = getup.qpos[:1].copy()
+    prone[:, 2] -= 0.06
+    qpos = np.concatenate([q, qp, prone]).astype(np.float32)
+    qvel = np.concatenate([walk.qvel[:len(q)], walk.qvel[:len(q)],
+                           getup.qvel[:1]]).astype(np.float32)
+    ctrl = (r.uniform(-1, 1, (len(qpos), model.nu)) * 20).astype(np.float32)
+    return qpos, qvel, ctrl
+
+
+def contact_rich_batch(card, dev, B=2048):
+    """Phase 16 (b): the nine states tiled to B, one Euler step at
+    CONTACT_RICH_K slots on the card: the active contacts and the
+    overflow beside 24 slots, the kernel held and timed on the step's
+    inputs, and the nine distinct envs against the port's CPU path.
+    Returns the numbers of the kernels line."""
+    import numpy as np
+    import torch
+
+    from deepmimic_mujoco_tpu_torch.models import assets, load_model
+    from deepmimic_mujoco_tpu_torch.models.physics_model import EULER
+    from deepmimic_mujoco_tpu_torch.physics.collision import collide
+    from deepmimic_mujoco_tpu_torch.physics.kinematics import (
+        fwd_kinematics,
+    )
+    from deepmimic_mujoco_tpu_torch.physics.step import Engine
+
+    model = load_model(assets.xml_path("unitree_g1"))
+    qpos, qvel, ctrl = nine_states(model)
+    tile = lambda x: torch.as_tensor(
+        np.tile(x, (-(-B // len(x)), 1))[:B], device=dev)
+    q, v, u = tile(qpos), tile(qvel), tile(ctrl)
+    eng = Engine(model, max_contacts=CONTACT_RICH_K, integrator=EULER,
+                 device=dev)
+    check(eng.solve_plan.shared, f"the engine's plan {eng.solve_plan}")
+    kin = fwd_kinematics(model, q[:9])
+    c = collide(model, eng.tables, kin, CONTACT_RICH_K)
+    active = (c.dist < c.includemargin).sum(1).tolist()
+    ov = c.overflow.tolist()
+    ov24 = collide(model, eng.tables, kin, 24).overflow.tolist()
+    print(f"contact-rich G1 batch (the nine states of tests/test_torch_g1.py"
+          f" tiled to B {B}): active contacts {active}; overflow at "
+          f"{CONTACT_RICH_K} slots {ov}, at 24 slots {ov24}")
+    check(not any(ov), f"contacts dropped at {CONTACT_RICH_K} slots: {ov}")
+    check(ov24[-1] > 0, f"the prone env drops nothing at 24 slots: {ov24}")
+    args, kw = capture_solve(lambda: eng.step(q, v, u,
+                                              lam0=eng.empty_lam(B)))
+    check(kw["K"] == CONTACT_RICH_K, f"the step's solve has K {kw['K']}")
+    hold = kernel_on_main_path(f"contact-rich G1 K {CONTACT_RICH_K}", card,
+                               args, kw)
+    # the nine distinct envs on the card against the CPU path
+    cpu = Engine(model, max_contacts=CONTACT_RICH_K, integrator=EULER,
+                 device="cpu")
+    got = eng.step(q[:9], v[:9], u[:9], lam0=eng.empty_lam(9))
+    want = cpu.step(*(torch.as_tensor(x) for x in (qpos, qvel, ctrl)),
+                    lam0=cpu.empty_lam(9))
+    errs = {k: scaled_err(w, g) for k, w, g in (
+        ("qpos", want[0], got[0]), ("qvel", want[1], got[1]),
+        ("qacc", want[2].qacc, got[2].qacc),
+        ("qfrc_constraint", want[2].qfrc_constraint,
+         got[2].qfrc_constraint))}
+    print("  the nine envs' step, card vs CPU path: scaled err "
+          + " ".join(f"{k}={e:.2e}" for k, e in errs.items()))
+    check(all(e < TOL_STEP for e in errs.values()),
+          f"the contact-rich step disagrees with the CPU path: {errs}")
+    return dict(hold, active=active, overflow=ov, overflow_24=ov24,
+                step_err=errs)
+
+
+def getup_rollout(card, dev, k, n_envs=2048, n_steps=64):
+    """Phase 16 (c): n_envs G1 getup envs at k contact slots under a
+    seeded ActorCritic, n_steps of step_auto_reset with the counts zeroed
+    (rollout_counted): the launches by plan, the overflow summed and its
+    largest, env-steps/s. At CONTACT_RICH_K the kernel is held on the
+    first step's inputs first. Returns the numbers of the kernels line."""
+    import torch
+
     from deepmimic_mujoco_tpu_torch.envs import DPEnv
     from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
     from deepmimic_mujoco_tpu_torch.rl import networks
-    from deepmimic_mujoco_tpu_torch.utils.device import fp32_physics
 
-    t_all = time.perf_counter()
-    dev = torch.device("cuda")
-    fp32_physics()
+    with torch.no_grad():
+        env = DPEnv(motion=GETUP_MOTION, robot="unitree_g1", max_contacts=k,
+                    device=dev)
+        plan = env.engine.solve_plan
+        net = networks.ActorCritic(
+            env.obs_size, env.action_size, device="cpu",
+            generator=torch.Generator().manual_seed(16)).to(dev)
+        g_rsi = torch.Generator(device=dev).manual_seed(17)
+        g_act = torch.Generator(device=dev).manual_seed(18)
+        state, obs = env.reset(n_envs, generator=g_rsi)
+        mean, log_std, _ = net(obs)
+        action, _ = networks.sample_action(mean, log_std, g_act)
+        hold = {}
+        if k == CONTACT_RICH_K:
+            args, kw = capture_parts(env, state, action)
+            hold = kernel_on_main_path(f"getup rollout K {k}", card, args,
+                                       kw)
+        ov_sum = torch.zeros((), dtype=torch.int64, device=dev)
 
-    # ---- 0. card ----------------------------------------------------------
-    t0 = phase("card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0].strip()
-    kind = torch.cuda.get_device_name(0)
-    print(f"card: {card} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | {kind}")
-    has = render_modules()
-    absent = [m for m, ok in has.items() if not ok]
-    print("render modules: " + ", ".join(
-        f"{m} {'present' if ok else 'ABSENT'}" for m, ok in has.items())
-        + (f"; without {' and '.join(absent)} the parts that draw with it "
-           "are left out (the dashboard's panel and plots need matplotlib; "
-           "overlays and videos need cv2) and are held by the CPU tests "
-           "only" if absent else ""))
-    done(t0, "card")
+        def step(s, a):
+            nonlocal ov_sum
+            s, out = env.step_auto_reset(s, a, g_rsi)
+            ov_sum += out.contact_overflow.sum()
+            return s, out
 
-    # ---- 1. build -----------------------------------------------------------
-    t0 = phase("build")
+        _, _, launches, wall, n_done, ov = rollout_counted(
+            env, net, state, action, n_steps, g_rsi, g_act, step=step)
+        by_plan = dict(fs.fused_solve.launches_by_plan)
+    sps = n_envs * n_steps / wall
+    print(f"getup rollout at {k} slots ({plan.label}) on {card}: {n_envs} "
+          f"envs x {n_steps} steps in {wall:.3f} s = {sps:.1f} env-steps/s "
+          f"({n_done} resets); launches by plan {by_plan}; contact overflow "
+          f"summed {int(ov_sum)}, largest {ov}")
+    check(by_plan == {plan.label: n_steps},
+          f"launches by plan {by_plan}, expected {n_steps} of {plan.label}")
+    return dict(hold, launches=launches, plan=plan.label,
+                env_steps_per_s=sps, overflow_sum=int(ov_sum),
+                overflow_max=ov, resets=n_done)
+
+
+def getup_b1_hold(card, dev):
+    """The kernel at B 1 at CONTACT_RICH_K slots, the batch of the getup
+    gate replay at those slots: the first step of the gate actor from
+    frame 0 (prone: contacts at once)."""
+    import torch
+
+    from deepmimic_mujoco_tpu_torch.envs import DPEnv
+    from deepmimic_mujoco_tpu_torch.rl.convert import actor_from_npz
+
+    actor_file, motion, robot, idx0, _, _ = GATES["g1_getup"]
+    env = DPEnv(motion=motion, robot=robot, max_contacts=CONTACT_RICH_K,
+                device=dev)
+    actor = actor_from_npz(os.path.join(
+        REPO, "deepmimic_mujoco_tpu_torch", "data", actor_file), device=dev)
+    with torch.no_grad():
+        state, obs = env.reset(1, idx_init=idx0)
+        args, kw = capture_parts(env, state, actor(obs)[0])
+    check(bool(args[-3].any()), "no active constraint on the first step")
+    return kernel_on_main_path(f"g1_getup_k{CONTACT_RICH_K}_b1 (the gate "
+                               "replay's batch)", card, args, kw)
+
+
+def contact_rich(card, dev, res, g1_sps=None):
+    """Phase 16: the kernel's shared-memory plan on random systems of its
+    sizes (a), on the contact-rich G1 batch (b), in the getup rollout at
+    CONTACT_RICH_K slots beside 24 (c), and at B 1 for the getup gate
+    replayed at CONTACT_RICH_K slots (d, whose replay ``res`` holds, beside
+    the gate at 24). Returns the paths of the kernels line."""
+    paths = {}
+    for robot, nv, K, L in CONTACT_RICH_RANDOM:
+        paths[f"random_{robot}_k{K}_b2048"] = hold_random(
+            card, dev, robot, nv, K, L)
+    paths["contact_rich_g1_k128_b2048"] = contact_rich_batch(card, dev)
+    roll = {k: getup_rollout(card, dev, k) for k in (CONTACT_RICH_K, 24)}
+    hi, lo = roll[CONTACT_RICH_K], roll[24]
+    print(f"getup rollout on {card}: {hi['env_steps_per_s']:.1f} env-steps/s"
+          f" at {CONTACT_RICH_K} slots, {lo['env_steps_per_s']:.1f} at 24"
+          + (f", {g1_sps:.1f} in phase 4 (G1 walk at 24)" if g1_sps else "")
+          + f"; contact overflow summed {hi['overflow_sum']} at "
+          f"{CONTACT_RICH_K} slots, {lo['overflow_sum']} at 24")
+    paths[f"getup_rollout_k{CONTACT_RICH_K}_b2048"] = dict(
+        hi, k24=lo, g1_walk_env_steps_per_s=g1_sps)
+    name = f"g1_getup_k{CONTACT_RICH_K}"
+    paths[f"{name}_b1"] = getup_b1_hold(card, dev)
+    r, r24 = res[name], res["g1_getup"]
+    gate = GATES["g1_getup"][4]
+    print(f"G1 getup gate replay at {CONTACT_RICH_K} slots on {card}: reward "
+          f"{r['reward']:.2f} over {r['length']} steps (at 24 slots "
+          f"{r24['reward']:.2f}; gate {gate}), max contact overflow "
+          f"{r['overflow']} (at 24: {r24['overflow']}); {r['launches']} "
+          f"kernel launches in {r['steps']} steps, by plan {r['plans']}")
+    check(r["reward"] > gate, f"{name} gate reward {r['reward']:.2f}")
+    check(r["overflow"] == 0, f"{name} dropped {r['overflow']} contacts")
+    check(r["launches"] == r["steps"] and len(r["plans"]) == 1
+          and next(iter(r["plans"])).startswith("shared"),
+          f"{name}: {r['launches']} launches in {r['steps']} steps, "
+          f"{r['plans']}")
+    paths[f"{name}_gate"] = dict(launches=r["launches"], reward=r["reward"],
+                                 reward_k24=r24["reward"], steps=r["steps"],
+                                 held_at=f"{name}_b1")
+    return paths
+
+
+def build_kernels():
+    """Phase 1: nvcc of the kernel and its phase-clock twin in parallel,
+    ptxas's registers and spills (a spill fails the run), and each
+    plan's registers, shared memory and blocks per SM at humanoid3d and
+    G1 (the register plans at their main paths' slots, the shared-memory
+    plan at CONTACT_RICH_K and at 48). Returns (spill bytes, {label:
+    kernel_info})."""
+    from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
+
     tb = time.perf_counter()
     libs = fs.build_all(force=True)
     print(f"nvcc {os.path.relpath(fs.SOURCE, REPO)} -> "
@@ -2064,13 +2352,17 @@ def main():
                     spills += int(m.group(1)) + int(m.group(2))
     check(spills == 0, f"ptxas reports {spills} bytes of spills")
     info = {}
-    for label, (nv, K, L) in (("h3d", (34, 16, 28)), ("g1", (43, 24, 37))):
+    for label, (nv, K, L) in (
+            ("h3d", (34, 16, 28)), ("g1", (43, 24, 37)),
+            ("g1_k48", (43, 48, 37)), (f"g1_k{CONTACT_RICH_K}",
+                                       (43, CONTACT_RICH_K, 37)),
+            (f"h3d_k{CONTACT_RICH_K}", (34, CONTACT_RICH_K, 28))):
         info[label] = fs.kernel_info(nv, 3 * K + L, K, parts=True)
         pl = info[label]["plan"]
         print(f"fused_solve plan at {label} (nv={nv}, K={K}, L={L}): "
-              f"{pl.threads_per_env} threads per env ({pl.tr} x {pl.tc}), "
+              f"{pl.threads_per_env} threads per env ({pl.label}), "
               f"{pl.envs_per_block} env per block, {pl.w_regs} W values "
-              f"per thread; {info[label]['regs']} registers, "
+              f"per thread in registers; {info[label]['regs']} registers, "
               f"{info[label]['spill_bytes']} local bytes, "
               f"{info[label]['smem_bytes']} B dynamic shared memory, "
               f"{info[label]['blocks_per_sm']} blocks per SM "
@@ -2079,6 +2371,55 @@ def main():
               f"launch_plan's shared memory {pl.smem_bytes} B differs from "
               f"the kernel's {info[label]['smem_bytes']} B")
         check(info[label]["spill_bytes"] == 0, f"local memory at {label}")
+        check(pl.shared == ("_k" in label), f"{label} takes {pl.label}")
+    return spills, info
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0].strip()
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from deepmimic_mujoco_tpu_torch.envs import DPEnv
+    from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
+    from deepmimic_mujoco_tpu_torch.rl import networks
+    from deepmimic_mujoco_tpu_torch.utils.device import fp32_physics
+
+    t_all = time.perf_counter()
+    dev = torch.device("cuda")
+    fp32_physics()
+
+    # ---- 0. card ----------------------------------------------------------
+    t0 = phase("card")
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {card} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | {kind}")
+    has = render_modules()
+    absent = [m for m, ok in has.items() if not ok]
+    print("render modules: " + ", ".join(
+        f"{m} {'present' if ok else 'ABSENT'}" for m, ok in has.items())
+        + (f"; without {' and '.join(absent)} the parts that draw with it "
+           "are left out (the dashboard's panel and plots need matplotlib; "
+           "overlays and videos need cv2) and are held by the CPU tests "
+           "only" if absent else ""))
+    done(t0, "card")
+
+    # ---- 1. build -----------------------------------------------------------
+    t0 = phase("build")
+    spills, info = build_kernels()
     done(t0, "build")
 
     # ---- 2. kernel vs plain ------------------------------------------------
@@ -2233,8 +2574,9 @@ def main():
         g1_k = kernel_on_main_path("G1", card, g1_args, g1_kw)
         state, action, g1_launches, wall, n_done, ov = rollout_counted(
             g1, net, state, action, n_steps, g_rsi, g_act)
+    g1_sps = n_envs * n_steps / wall
     print(f"G1 main path on {card}: {n_envs} envs x {n_steps} steps in "
-          f"{wall:.3f} s = {n_envs * n_steps / wall:.1f} env-steps/s "
+          f"{wall:.3f} s = {g1_sps:.1f} env-steps/s "
           f"(policy + sampling + step_auto_reset; {n_done} resets), "
           f"max contact overflow {ov}")
     done(t0, "G1 main path")
@@ -2547,22 +2889,32 @@ def main():
     recipes = {name: finetune_recipe(card, dev, name) for name in RECIPES}
     done(t0, "fine-tune recipes")
 
+    # ---- 16. contact-rich ---------------------------------------------
+    t0 = phase("contact-rich")
+    rich = contact_rich(card, dev, res, g1_sps)
+    done(t0, "contact-rich")
+
+    k128 = f"g1_k{CONTACT_RICH_K}"
+    main_path = rich[f"getup_rollout_k{CONTACT_RICH_K}_b2048"]
     kernels = [{
         "name": "fused_solve",
         "route": "cuda",
         "source": "deepmimic_mujoco_tpu_torch/ops/csrc/fused_solve.cu",
         "replaces": "deepmimic_mujoco_tpu/ops/fused_solve.py:67",
-        # this slice's main path: the F2 fine-tune recipe's two
-        # iterations (G1 plan, lam0 = 0, B 2048)
-        "launches": recipes["f2"]["launches"],
-        **{k: recipes["f2"][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by")},
+        # this slice's main path: the G1 getup rollout at 128 contact
+        # slots (the shared-memory plan, B 2048), held on its first step
+        "launches": main_path["launches"],
+        **{k: main_path[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by")},
         "library_ms": None,
         "regs": info["h3d"]["regs"],
         "spills": spills,
         "smem_bytes": info["h3d"]["smem_bytes"],
         "blocks_per_sm": info["h3d"]["blocks_per_sm"],
+        "shared_plan": {k: info[k128][k] for k in (
+            "regs", "spill_bytes", "smem_bytes", "blocks_per_sm")},
         "paths": {
+            **{k: {"library_ms": None, **v} for k, v in rich.items()},
             "finetune_f2": {**recipes["f2"], "library_ms": None},
             "finetune_r5b": {**recipes["r5b"], "library_ms": None},
             "ppo_dp": {**dp, "library_ms": None},
@@ -2664,9 +3016,37 @@ def data_parallel_main():
     return 0
 
 
+def contact_rich_main():
+    """``chip_smoke.py --contact-rich``: the build (phase 1) and phase 16
+    alone, with its gate replay and the same actor at 24 slots run as
+    replay jobs first, then the phase's numbers as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from deepmimic_mujoco_tpu_torch.utils.device import fp32_physics
+
+    fp32_physics()
+    card = card_line()
+    print(f"card: {card}")
+    t0 = phase("build")
+    build_kernels()
+    done(t0, "build")
+    t0 = phase("contact-rich")
+    res = run_replays(card, ("g1_getup", *GATES_K128), REPLAY_TIMEOUT)
+    rich = contact_rich(card, torch.device("cuda"), res)
+    done(t0, "contact-rich")
+    print(json.dumps(rich))
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == "--data-parallel":
         sys.exit(data_parallel_main())
+    if len(sys.argv) == 2 and sys.argv[1] == "--contact-rich":
+        sys.exit(contact_rich_main())
     if len(sys.argv) == 3 and sys.argv[1] == "--replay":
         sys.path.insert(0, REPO)
         replay_job(sys.argv[2])

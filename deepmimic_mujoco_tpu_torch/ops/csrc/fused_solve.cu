@@ -58,15 +58,23 @@
 // The thread grid (the plan) is a template constant; the wrapper
 // (ops/fused_solve.py:launch_plan) picks it from FUSED_SOLVE_PLANS and
 // computes the shared-memory bytes by the same sum as Smem::floats.
+// Sizes that no register plan holds (up to REG_N_MAX constraint rows)
+// take the shared-memory plan, fused_solve_shared_kernel below: the same
+// pipeline with W in shared memory, up to what one block's shared memory
+// holds (Shared::floats, mirrored by ops/fused_solve.py:
+// shared_smem_bytes).
 //
 // Built with -DFUSED_SOLVE_CLOCKS, thread 0 of each env writes clock64()
 // at the 8 phase boundaries into clocks (B, 8); the default build has no
 // clock code.
 #include <cuda_runtime.h>
 
-#define NV_MAX 48
-#define N_MAX 112
-#define K_MAX 37
+// the register plans' range (ops/fused_solve.py:REG_NV_MAX ...); larger
+// sizes take the shared-memory plan, up to what one block holds
+#define REG_NV_MAX 48
+#define REG_N_MAX 112
+#define REG_K_MAX 37
+#define SMEM_MAX 232448  // H100: most dynamic shared memory of one block
 #define POWER_ITERS 12
 #define FULL 0xffffffffu
 
@@ -106,7 +114,7 @@ struct Plan {
   X(4, 32, 12, 2, 2)
 
 // Shared-memory layout of one env, in floats (the wrapper's
-// launch_plan computes the same sum): per column group the column
+// _register_plan computes the same sum): per column group the column
 // constants {R, 1/diag, b, active} as float4s (CVS of them, an odd count,
 // so the 8 column groups of a warp hit disjoint banks), J^T staged by
 // the load phase (nv rows, stride n|1), L (nv rows, stride nv|1), 1/L_kk,
@@ -236,6 +244,35 @@ __device__ __forceinline__ float fsqrt(float x) {
   return x > 0.f ? x * rsqrtf(x) : 0.f;
 }
 
+// The cone on one contact: (normal, t1, t2) -> its projection (the
+// elliptic cone, or the L1 diamond when PYR), each row times its active
+// flag.
+template <bool PYR>
+__device__ __forceinline__ void cone(float x0, float t1, float t2, float mu,
+                                     float a0, float a1, float a2,
+                                     float& l0, float& l1, float& l2) {
+  float nrm = fmaxf(x0, 0.f);
+  float lim = mu * nrm;
+  float t1s, t2s;
+  if (PYR) {
+    float p1a = fabsf(t1), p2a = fabsf(t2);
+    float xx = fminf(fmaxf((p1a - p2a + lim) * 0.5f, 0.f), lim);
+    bool over = p1a + p2a > lim;
+    float p1 = over ? xx : p1a;
+    float p2 = over ? lim - xx : p2a;
+    t1s = (t1 > 0.f ? p1 : (t1 < 0.f ? -p1 : 0.f));
+    t2s = (t2 > 0.f ? p2 : (t2 < 0.f ? -p2 : 0.f));
+  } else {
+    float tn = fsqrt(t1 * t1 + t2 * t2 + 1e-24f);
+    float scale = tn > lim ? __fdividef(lim, tn) : 1.f;
+    t1s = t1 * scale;
+    t2s = t2 * scale;
+  }
+  l0 = nrm * a0;
+  l1 = t1s * a1;
+  l2 = t2s * a2;
+}
+
 // lam = project(x) * active: the cone on each of the thread's contacts,
 // >= 0 on its limit rows.
 template <class P, bool PYR>
@@ -244,31 +281,53 @@ __device__ __forceinline__ void project(const float (&x)[P::CPT],
                                         const float (&mu)[P::KC],
                                         float (&lam)[P::CPT]) {
 #pragma unroll
-  for (int q = 0; q < P::KC; ++q) {
-    float nrm = fmaxf(x[3 * q], 0.f);
-    float t1 = x[3 * q + 1], t2 = x[3 * q + 2];
-    float lim = mu[q] * nrm;
-    float t1s, t2s;
-    if (PYR) {
-      float a1 = fabsf(t1), a2 = fabsf(t2);
-      float xx = fminf(fmaxf((a1 - a2 + lim) * 0.5f, 0.f), lim);
-      bool over = a1 + a2 > lim;
-      float p1 = over ? xx : a1;
-      float p2 = over ? lim - xx : a2;
-      t1s = (t1 > 0.f ? p1 : (t1 < 0.f ? -p1 : 0.f));
-      t2s = (t2 > 0.f ? p2 : (t2 < 0.f ? -p2 : 0.f));
-    } else {
-      float tn = fsqrt(t1 * t1 + t2 * t2 + 1e-24f);
-      float scale = tn > lim ? __fdividef(lim, tn) : 1.f;
-      t1s = t1 * scale;
-      t2s = t2 * scale;
-    }
-    lam[3 * q] = nrm * act[3 * q];
-    lam[3 * q + 1] = t1s * act[3 * q + 1];
-    lam[3 * q + 2] = t2s * act[3 * q + 2];
-  }
+  for (int q = 0; q < P::KC; ++q)
+    cone<PYR>(x[3 * q], x[3 * q + 1], x[3 * q + 2], mu[q], act[3 * q],
+              act[3 * q + 1], act[3 * q + 2], lam[3 * q], lam[3 * q + 1],
+              lam[3 * q + 2]);
 #pragma unroll
   for (int p = 3 * P::KC; p < P::CPT; ++p) lam[p] = fmaxf(x[p], 0.f) * act[p];
+}
+
+// J^T of env e into shared memory (nv rows, stride ldj), by the T
+// threads of its block: copied on the explicit path, built from the
+// contact-Jacobian parts on the parts path.
+template <bool PARTS, int T>
+__device__ __forceinline__ void stage_jt(const Args& a, long long e,
+                                         float* Js, int ldj, int tid) {
+  const int nv = a.nv, n = a.n, K = a.K, L = a.L;
+  if (!PARTS) {
+#pragma unroll 8
+    for (int idx = tid; idx < nv * n; idx += T)
+      Js[(idx / n) * ldj + idx % n] = a.JT[e * nv * n + idx];
+  } else {
+    // contact c, row r: J[rK+c, i] = (frame[c,r,:] . cd_lin[i] +
+    // G[c,r,:] . cd_ang[i]) * w[c,i] with G[c,r,:] = rpos[c] x frame[c,r,:]
+#pragma unroll 4
+    for (int idx = tid; idx < K * nv; idx += T) {
+      const int c = idx / nv, i = idx - c * nv;
+      const float* fr = a.frame + (e * K + c) * 9;
+      const float* rp = a.rpos + (e * K + c) * 3;
+      const float* cl = a.cd_lin + (e * nv + i) * 3;
+      const float* ca = a.cd_ang + (e * nv + i) * 3;
+      const float wv = a.w[(e * K + c) * nv + i];
+      const float rx = rp[0], ry = rp[1], rz = rp[2];
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        const float fx = fr[3 * r], fy = fr[3 * r + 1], fz = fr[3 * r + 2];
+        const float gx = ry * fz - rz * fy, gy = rz * fx - rx * fz,
+                    gz = rx * fy - ry * fx;
+        const float lin = fx * cl[0] + fy * cl[1] + fz * cl[2];
+        const float ang = gx * ca[0] + gy * ca[1] + gz * ca[2];
+        Js[i * ldj + r * K + c] = lin * wv + ang * wv;
+      }
+    }
+#pragma unroll 4
+    for (int idx = tid; idx < L * nv; idx += T) {
+      const int l = idx / nv, i = idx - l * nv;
+      Js[i * ldj + 3 * K + l] = i == a.ld_idx[l] ? a.sign_l[e * L + l] : 0.f;
+    }
+  }
 }
 
 template <class P, bool PARTS, bool PYR>
@@ -308,38 +367,7 @@ __global__ void __launch_bounds__(P::T) fused_solve_kernel(Args a) {
       A[s][t] = (i < nv && k < nv) ? a.M[(e * nv + i) * nv + k] : 0.f;
     }
   }
-  if (!PARTS) {
-#pragma unroll 8
-    for (int idx = tid; idx < nv * n; idx += P::T)
-      Js[(idx / n) * ldj + idx % n] = a.JT[e * nv * n + idx];
-  } else {
-    // contact c, row r: J[rK+c, i] = (frame[c,r,:] . cd_lin[i] +
-    // G[c,r,:] . cd_ang[i]) * w[c,i] with G[c,r,:] = rpos[c] x frame[c,r,:]
-#pragma unroll 4
-    for (int idx = tid; idx < K * nv; idx += P::T) {
-      const int c = idx / nv, i = idx - c * nv;
-      const float* fr = a.frame + (e * K + c) * 9;
-      const float* rp = a.rpos + (e * K + c) * 3;
-      const float* cl = a.cd_lin + (e * nv + i) * 3;
-      const float* ca = a.cd_ang + (e * nv + i) * 3;
-      const float wv = a.w[(e * K + c) * nv + i];
-      const float rx = rp[0], ry = rp[1], rz = rp[2];
-#pragma unroll
-      for (int r = 0; r < 3; ++r) {
-        const float fx = fr[3 * r], fy = fr[3 * r + 1], fz = fr[3 * r + 2];
-        const float gx = ry * fz - rz * fy, gy = rz * fx - rx * fz,
-                    gz = rx * fy - ry * fx;
-        const float lin = fx * cl[0] + fy * cl[1] + fz * cl[2];
-        const float ang = gx * ca[0] + gy * ca[1] + gz * ca[2];
-        Js[i * ldj + r * K + c] = lin * wv + ang * wv;
-      }
-    }
-#pragma unroll 4
-    for (int idx = tid; idx < L * nv; idx += P::T) {
-      const int l = idx / nv, i = idx - l * nv;
-      Js[i * ldj + 3 * K + l] = i == a.ld_idx[l] ? a.sign_l[e * L + l] : 0.f;
-    }
-  }
+  stage_jt<PARTS, P::T>(a, e, Js, ldj, tid);
   float y[RPT];
 #pragma unroll
   for (int s = 0; s < RPT; ++s) {
@@ -604,6 +632,341 @@ __global__ void __launch_bounds__(P::T) fused_solve_kernel(Args a) {
   STAMP(7);
 }
 
+// ---- the shared-memory plan ----------------------------------------------
+// For the sizes no register plan holds (more constraint rows than
+// REG_N_MAX: G1 from 26 contact slots, humanoid3d from 29): one block of
+// T threads per env, with W = L^-1 J^T in shared memory, written in place
+// over the staged J^T. Its limit is the shared memory of one block
+// (Shared::floats): G1 at 128 slots (n 421) takes ~89 KB, two blocks an
+// SM. The pipeline and the arithmetic are the register kernel's:
+//   - thread t owns the units t, t + T, ...: unit c < K is contact c (the
+//     columns c, K + c, 2K + c: normal and both tangents, so the cone
+//     projection needs no exchange), unit K + l the limit row 3K + l;
+//   - Cholesky runs in place in shared memory, right-looking, one barrier
+//     per column; W and y are forward substitutions, one column per
+//     thread (y on the last thread), with no barrier;
+//   - W v: warp w takes rows w, w + NW, ...; its lanes stride the columns
+//     and a butterfly of shuffles sums them. W^T u: each thread sums its
+//     own columns over the nv rows (u is a broadcast read). Norms are a
+//     block sum: shuffles, then one shared-memory pass across the warps;
+//   - the vector W v multiplies (the power iterate, then lam) lives in
+//     shared memory; a sweep takes two barriers.
+// It reads W from shared memory twice per matvec, so the shared-memory
+// rate, not the fp32 rate, sets its pace.
+template <int T>
+struct Shared {
+  static constexpr int NW = T / 32;
+  // per column {R, 1/diag, b, active} as float4s (n), W (nv rows, stride
+  // n|1), L (nv rows, stride nv|1), 1/L_kk, y, u = W v, the vector W v
+  // multiplies (n), mu (K), two buffers of per-warp partials
+  __host__ __device__ static constexpr int floats(int nv, int n, int K) {
+    return 4 * n + nv * (n | 1) + nv * (nv | 1) + 3 * nv + n + K + 2 * NW;
+  }
+};
+
+// Sum of one value per thread over the block.
+template <int T>
+__device__ __forceinline__ float block_sum(float v, float* red, int& buf,
+                                           int tid) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  float* p = red + buf * Shared<T>::NW;
+  if ((tid & 31) == 0) p[tid >> 5] = v;
+  __syncthreads();
+  v = 0.f;
+#pragma unroll
+  for (int w = 0; w < Shared<T>::NW; ++w) v += p[w];
+  buf ^= 1;
+  return v;
+}
+
+// u = W v; ends with a barrier, so u is read after it.
+template <int T>
+__device__ __forceinline__ void wv_rows(const float* Ws, int ldw,
+                                        const float* v, float* u, int nv,
+                                        int n, int tid) {
+  const int lane = tid & 31;
+  for (int i = tid >> 5; i < nv; i += Shared<T>::NW) {
+    const float* w = Ws + i * ldw;
+    float a0 = 0.f, a1 = 0.f;
+    int j = lane;
+    for (; j + 32 < n; j += 64) {
+      a0 = fmaf(w[j], v[j], a0);
+      a1 = fmaf(w[j + 32], v[j + 32], a1);
+    }
+    if (j < n) a0 = fmaf(w[j], v[j], a0);
+    float acc = a0 + a1;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(FULL, acc, o);
+    if (lane == 0) u[i] = acc;
+  }
+  __syncthreads();
+}
+
+// The NC columns c[] of X (rows of stride ldx) become L^-1 X, one thread.
+template <int NC>
+__device__ __forceinline__ void fwd_cols(const float* Ls, int ldl,
+                                         const float* inv_ld, int nv,
+                                         float* X, int ldx,
+                                         const int (&c)[NC]) {
+  for (int k = 0; k < nv; ++k) {
+    const float* lk = Ls + k * ldl;
+    float s[NC];
+#pragma unroll
+    for (int q = 0; q < NC; ++q) s[q] = X[k * ldx + c[q]];
+    for (int m = 0; m < k; ++m) {
+      const float l = lk[m];
+#pragma unroll
+      for (int q = 0; q < NC; ++q) s[q] = fmaf(-l, X[m * ldx + c[q]], s[q]);
+    }
+    const float d = inv_ld[k];
+#pragma unroll
+    for (int q = 0; q < NC; ++q) X[k * ldx + c[q]] = s[q] * d;
+  }
+}
+
+// (W^T u)[c[q]] for the NC columns c[] of W.
+template <int NC>
+__device__ __forceinline__ void wtu_cols(const float* Ws, int ldw,
+                                         const float* u, int nv,
+                                         const int (&c)[NC], float (&g)[NC]) {
+#pragma unroll
+  for (int q = 0; q < NC; ++q) g[q] = 0.f;
+  for (int i = 0; i < nv; ++i) {
+    const float ui = u[i];
+    const float* w = Ws + i * ldw;
+#pragma unroll
+    for (int q = 0; q < NC; ++q) g[q] = fmaf(w[c[q]], ui, g[q]);
+  }
+}
+
+// The column constants {R, 1/diag, b, active} of the NC columns c[]; adds
+// each column's active^2 to s2 (the power iteration's start).
+template <int NC>
+__device__ __forceinline__ void col_consts(const Args& a, long long e,
+                                           const float* Ws, int ldw,
+                                           const float* y, float4* cv,
+                                           const int (&c)[NC], float& s2) {
+  float sw[NC], sb[NC];
+#pragma unroll
+  for (int q = 0; q < NC; ++q) sw[q] = sb[q] = 0.f;
+  for (int i = 0; i < a.nv; ++i) {
+    const float* w = Ws + i * ldw;
+    const float yi = y[i];
+#pragma unroll
+    for (int q = 0; q < NC; ++q) {
+      sw[q] = fmaf(w[c[q]], w[c[q]], sw[q]);
+      sb[q] = fmaf(w[c[q]], yi, sb[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NC; ++q) {
+    const size_t o = e * a.n + c[q];
+    const float diagA = fmaxf(sw[q], 1e-8f);
+    const float im = fminf(fmaxf(a.imp[o], 1e-5f), 1.f - 1e-5f);
+    const float r = (1.f - im) / im * diagA;
+    const float act = a.active[o];
+    cv[c[q]] = make_float4(r, 1.f / fmaxf(diagA + r, 1e-8f),
+                           sb[q] - a.aref[o], act);
+    s2 = fmaf(act, act, s2);
+  }
+}
+
+template <int T, bool PARTS, bool PYR>
+__global__ void __launch_bounds__(T) fused_solve_shared_kernel(Args a) {
+  extern __shared__ __align__(16) float fs_smem[];
+  const int nv = a.nv, n = a.n, K = a.K, L = a.L, U = K + L;
+  const int ldl = nv | 1, ldw = n | 1;
+  float4* cv = reinterpret_cast<float4*>(fs_smem);  // column constants
+  float* Ws = fs_smem + 4 * n;                      // J^T, then W
+  float* Ls = Ws + nv * ldw;                        // M, then L
+  float* inv_ld = Ls + nv * ldl;                    // 1 / L[k][k]
+  float* ybuf = inv_ld + nv;                        // y = L^-1 qf
+  float* ubuf = ybuf + nv;                          // u = W v
+  float* vbuf = ubuf + nv;                          // v, then lam
+  float* mus = vbuf + n;                            // mu
+  float* red = mus + K;                             // per-warp partials
+  int buf = 0;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const long long e = blockIdx.x;
+  STAMP(0);
+
+  // ---- 0. load: M, J^T (built from the parts on that path), mu ----------
+  for (int idx = tid; idx < nv * nv; idx += T)
+    Ls[(idx / nv) * ldl + idx % nv] = a.M[e * nv * nv + idx];
+  stage_jt<PARTS, T>(a, e, Ws, ldw, tid);
+  for (int c = tid; c < K; c += T) mus[c] = a.mu[e * K + c];
+  __syncthreads();
+  STAMP(1);
+
+  // ---- 1. Cholesky, right-looking, in place ------------------------------
+  // Column j is final when step j starts: each thread scales the entries
+  // it needs by d = 1/sqrt(pivot) and updates its share of the trailing
+  // lower triangle. Column k is scaled by 1/L_kk after the loop.
+  for (int j = 0; j < nv; ++j) {
+    const float d = rsqrtf(fmaxf(Ls[j * ldl + j], 1e-12f));
+    if (tid == 0) inv_ld[j] = d;
+    const int m = nv - 1 - j;
+    for (int idx = tid; idx < m * m; idx += T) {
+      const int i = j + 1 + idx / m, k = j + 1 + idx % m;
+      if (k <= i)
+        Ls[i * ldl + k] -= (Ls[i * ldl + j] * d) * (Ls[k * ldl + j] * d);
+    }
+    __syncthreads();
+  }
+  for (int idx = tid; idx < nv * nv; idx += T) {
+    const int i = idx / nv, k = idx - (idx / nv) * nv;
+    if (k <= i) Ls[i * ldl + k] *= inv_ld[k];
+  }
+  __syncthreads();
+  STAMP(2);
+
+  // ---- 2. W = L^-1 J^T by columns, y = L^-1 qf on the last thread --------
+  for (int u = tid; u < U; u += T) {
+    if (u < K) {
+      const int c[3] = {u, K + u, 2 * K + u};
+      fwd_cols<3>(Ls, ldl, inv_ld, nv, Ws, ldw, c);
+    } else {
+      const int c[1] = {2 * K + u};
+      fwd_cols<1>(Ls, ldl, inv_ld, nv, Ws, ldw, c);
+    }
+  }
+  if (tid == T - 1) {
+    for (int i = 0; i < nv; ++i) ybuf[i] = a.qf[e * nv + i];
+    const int c[1] = {0};
+    fwd_cols<1>(Ls, ldl, inv_ld, nv, ybuf, 1, c);
+  }
+  __syncthreads();
+  STAMP(3);
+
+  // ---- 3. diagA, R, inverse diagonal, b: the column constants ------------
+  float s2 = 0.f;
+  for (int u = tid; u < U; u += T) {
+    if (u < K) {
+      const int c[3] = {u, K + u, 2 * K + u};
+      col_consts<3>(a, e, Ws, ldw, ybuf, cv, c, s2);
+    } else {
+      const int c[1] = {2 * K + u};
+      col_consts<1>(a, e, Ws, ldw, ybuf, cv, c, s2);
+    }
+  }
+  STAMP(4);
+
+  // ---- 4. power iteration for the step size -----------------------------
+  // vbuf holds v = vec * active; each thread writes its own columns
+  {
+    const float anrm = fmaxf(fsqrt(block_sum<T>(s2, red, buf, tid)), 1e-12f);
+    for (int c = tid; c < n; c += T) {
+      const float act = cv[c].w;
+      vbuf[c] = __fdividef(act, anrm) * act;
+    }
+  }
+  float lam_max = 1.f;
+  for (int it = 0; it <= POWER_ITERS; ++it) {
+    __syncthreads();
+    wv_rows<T>(Ws, ldw, vbuf, ubuf, nv, n, tid);
+    float p2 = 0.f;
+    for (int u = tid; u < U; u += T) {
+      if (u < K) {
+        const int c[3] = {u, K + u, 2 * K + u};
+        float g[3];
+        wtu_cols<3>(Ws, ldw, ubuf, nv, c, g);
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const float4 k = cv[c[q]];
+          const float vec = k.y * (g[q] + k.x * vbuf[c[q]]) * k.w;
+          vbuf[c[q]] = vec;
+          p2 = fmaf(vec, vec, p2);
+        }
+      } else {
+        const int c[1] = {2 * K + u};
+        float g[1];
+        wtu_cols<1>(Ws, ldw, ubuf, nv, c, g);
+        const float4 k = cv[c[0]];
+        const float vec = k.y * (g[0] + k.x * vbuf[c[0]]) * k.w;
+        vbuf[c[0]] = vec;
+        p2 = fmaf(vec, vec, p2);
+      }
+    }
+    // the last pass only reads the norm: lam_max keeps its value
+    const float nrm = fsqrt(block_sum<T>(p2, red, buf, tid));
+    const float dn = fmaxf(nrm, 1e-12f);
+    for (int c = tid; c < n; c += T) vbuf[c] = __fdividef(vbuf[c], dn) *
+                                               cv[c].w;
+    lam_max = fmaxf(nrm, 1.f);
+  }
+  const float step = fminf(1.5f / lam_max, 1.f);
+  __syncthreads();
+  STAMP(5);
+
+  // ---- 5. projected sweeps from project(lam0) ---------------------------
+  for (int u = tid; u < U; u += T) {
+    const long long o = e * n;
+    if (u < K) {
+      const int c0 = u, c1 = K + u, c2 = 2 * K + u;
+      cone<PYR>(a.lam0[o + c0], a.lam0[o + c1], a.lam0[o + c2], mus[u],
+                cv[c0].w, cv[c1].w, cv[c2].w, vbuf[c0], vbuf[c1], vbuf[c2]);
+    } else {
+      const int c = 2 * K + u;
+      vbuf[c] = fmaxf(a.lam0[o + c], 0.f) * cv[c].w;
+    }
+  }
+  for (int it = 0; it < a.iterations; ++it) {
+    __syncthreads();
+    wv_rows<T>(Ws, ldw, vbuf, ubuf, nv, n, tid);
+    for (int u = tid; u < U; u += T) {
+      if (u < K) {
+        const int c[3] = {u, K + u, 2 * K + u};
+        float g[3], x[3], ac[3];
+        wtu_cols<3>(Ws, ldw, ubuf, nv, c, g);
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const float4 k = cv[c[q]];
+          const float lq = vbuf[c[q]];
+          x[q] = lq - step * k.y * (g[q] + k.x * lq + k.z);
+          ac[q] = k.w;
+        }
+        cone<PYR>(x[0], x[1], x[2], mus[u], ac[0], ac[1], ac[2], vbuf[c[0]],
+                  vbuf[c[1]], vbuf[c[2]]);
+      } else {
+        const int c[1] = {2 * K + u};
+        float g[1];
+        wtu_cols<1>(Ws, ldw, ubuf, nv, c, g);
+        const float4 k = cv[c[0]];
+        const float lq = vbuf[c[0]];
+        const float x = lq - step * k.y * (g[0] + k.x * lq + k.z);
+        vbuf[c[0]] = fmaxf(x, 0.f) * k.w;
+      }
+    }
+  }
+  __syncthreads();
+  STAMP(6);
+
+  // ---- 6. outputs ---------------------------------------------------------
+  wv_rows<T>(Ws, ldw, vbuf, ubuf, nv, n, tid);  // t = W lam
+  for (int c = tid; c < n; c += T) a.lam[e * n + c] = vbuf[c];
+  // qfrc = L t = J^T lam, a row a thread
+  for (int i = tid; i < nv; i += T) {
+    const float* li = Ls + i * ldl;
+    float acc = 0.f;
+    for (int k = 0; k <= i; ++k) acc = fmaf(li[k], ubuf[k], acc);
+    a.qfrc[e * nv + i] = acc;
+  }
+  // qacc = L^-T (y + t), right-looking from the last row up, on warp 0
+  if (tid < 32) {
+    for (int i = lane; i < nv; i += 32) ybuf[i] += ubuf[i];
+    __syncwarp();
+    for (int k = nv - 1; k >= 0; --k) {
+      const float zk = ybuf[k] * inv_ld[k];
+      const float* lk = Ls + k * ldl;
+      for (int i = lane; i < k; i += 32) ybuf[i] = fmaf(-lk[i], zk, ybuf[i]);
+      if (lane == 0) a.qacc[e * nv + k] = zk;
+      __syncwarp();
+    }
+  }
+  STAMP(7);
+}
+
 template <class P>
 static bool plan_is(int tr, int tc, int rpt, int kc, int lc) {
   return tr == P::TR && tc == P::TC && rpt == P::RPT && kc == P::KC &&
@@ -642,10 +1005,47 @@ static int launch(const Args& a, int B, bool parts, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The shared-memory plan's thread counts (ops/fused_solve.py:
+// SHARED_PLANS); its plan tuple is (0, T, 0, 0, 0).
+#define FUSED_SOLVE_SHARED(X) X(128) X(256)
+
+template <int T>
+static const void* shared_kernel_of(bool parts, bool pyr) {
+  if (parts)
+    return pyr ? (const void*)fused_solve_shared_kernel<T, true, true>
+               : (const void*)fused_solve_shared_kernel<T, true, false>;
+  return pyr ? (const void*)fused_solve_shared_kernel<T, false, true>
+             : (const void*)fused_solve_shared_kernel<T, false, false>;
+}
+
+template <int T>
+static int launch_shared(const Args& a, int B, bool parts,
+                         cudaStream_t stream) {
+  const size_t smem = sizeof(float) * Shared<T>::floats(a.nv, a.n, a.K);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const bool pyr = a.pyramidal != 0;
+  const void* kern = shared_kernel_of<T>(parts, pyr);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (parts && pyr)
+    fused_solve_shared_kernel<T, true, true><<<B, T, smem, stream>>>(a);
+  else if (parts)
+    fused_solve_shared_kernel<T, true, false><<<B, T, smem, stream>>>(a);
+  else if (pyr)
+    fused_solve_shared_kernel<T, false, true><<<B, T, smem, stream>>>(a);
+  else
+    fused_solve_shared_kernel<T, false, false><<<B, T, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // One launch of B envs. JT == NULL selects the parts path (cd_lin ...
 // ld_idx); otherwise the parts pointers are ignored. clocks is read only
-// by the -DFUSED_SOLVE_CLOCKS build. (tr, tc, rpt, kc, lc) must be one
-// of FUSED_SOLVE_PLANS.
+// by the -DFUSED_SOLVE_CLOCKS build. (tr, tc, rpt, kc, lc) is one of
+// FUSED_SOLVE_PLANS, within the register plans' range, or (0, T, 0, 0, 0)
+// with T one of FUSED_SOLVE_SHARED, within one block's shared memory.
 extern "C" int fused_solve_launch(
     const void* M, const void* JT, const void* cd_lin, const void* cd_ang,
     const void* frame, const void* rpos, const void* w, const void* sign_l,
@@ -654,8 +1054,9 @@ extern "C" int fused_solve_launch(
     void* qfrc, void* lam, void* clocks, int B, int nv, int n, int K, int L,
     int iterations, int pyramidal, int tr, int tc, int rpt, int kc, int lc,
     void* stream) {
-  if (nv < 1 || nv > NV_MAX || n > N_MAX || n != 3 * K + L || K > K_MAX ||
-      L < 0 || B < 0 || iterations < 0)
+  if (nv < 1 || n != 3 * K + L || K < 0 || L < 0 || B < 0 || iterations < 0)
+    return (int)cudaErrorInvalidValue;
+  if (tr != 0 && (nv > REG_NV_MAX || n > REG_N_MAX || K > REG_K_MAX))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   Args a;
@@ -691,33 +1092,53 @@ extern "C" int fused_solve_launch(
     return launch<Plan<tr_, tc_, rpt_, kc_, lc_>>(a, B, parts, st);
   FUSED_SOLVE_PLANS(FS_DISPATCH)
 #undef FS_DISPATCH
+#define FS_DISPATCH_SHARED(t_)                                  \
+  if (tr == 0 && tc == t_ && rpt == 0 && kc == 0 && lc == 0) \
+    return launch_shared<t_>(a, B, parts, st);
+  FUSED_SOLVE_SHARED(FS_DISPATCH_SHARED)
+#undef FS_DISPATCH_SHARED
   return (int)cudaErrorInvalidValue;
 }
 
 // What the compiler and the occupancy calculator say of one plan's
 // kernel: out = {registers per thread, local (spill) bytes per thread,
-// dynamic shared bytes at (nv, n), blocks per SM}.
+// dynamic shared bytes at (nv, n, K), blocks per SM}.
+static int kernel_report(const void* kern, int threads, int smem, int* out) {
+  cudaFuncAttributes at;
+  cudaError_t err = cudaFuncGetAttributes(&at, kern);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, threads,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = at.numRegs;
+  out[1] = (int)at.localSizeBytes;
+  out[2] = smem;
+  out[3] = blocks;
+  return 0;
+}
+
 extern "C" int fused_solve_info(int tr, int tc, int rpt, int kc, int lc,
-                                int parts, int nv, int n, int* out) {
+                                int parts, int nv, int n, int K, int* out) {
 #define FS_INFO(tr_, tc_, rpt_, kc_, lc_)                                  \
   if (plan_is<Plan<tr_, tc_, rpt_, kc_, lc_>>(tr, tc, rpt, kc, lc)) {      \
     using P = Plan<tr_, tc_, rpt_, kc_, lc_>;                              \
-    const void* kern = kernel_of<P>(parts != 0, false);                    \
-    const int smem = (int)sizeof(float) * Smem<P>::floats(nv, n);                             \
-    cudaFuncAttributes at;                                                 \
-    cudaError_t err = cudaFuncGetAttributes(&at, kern);                    \
-    if (err != cudaSuccess) return (int)err;                               \
-    int blocks = 0;                                                        \
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,     \
-                                                        P::T, smem);       \
-    if (err != cudaSuccess) return (int)err;                               \
-    out[0] = at.numRegs;                                                   \
-    out[1] = (int)at.localSizeBytes;                                       \
-    out[2] = smem;                                                         \
-    out[3] = blocks;                                                       \
-    return 0;                                                              \
+    return kernel_report(kernel_of<P>(parts != 0, false), P::T,            \
+                         (int)sizeof(float) * Smem<P>::floats(nv, n), out); \
   }
   FUSED_SOLVE_PLANS(FS_INFO)
 #undef FS_INFO
+#define FS_INFO_SHARED(t_)                                                 \
+  if (tr == 0 && tc == t_ && rpt == 0 && kc == 0 && lc == 0)               \
+    return kernel_report(shared_kernel_of<t_>(parts != 0, false), t_,      \
+                         (int)sizeof(float) * Shared<t_>::floats(nv, n, K), \
+                         out);
+  FUSED_SOLVE_SHARED(FS_INFO_SHARED)
+#undef FS_INFO_SHARED
   return (int)cudaErrorInvalidValue;
 }

@@ -31,6 +31,12 @@ XLA outside its Pallas kernel. The kernel is built with nvcc into
 ``build/torch_kernels/libfused_solve.so`` at first use and bound with
 ctypes; ``build_all`` builds the phase-clock variant beside it.
 
+The register plans hold up to 112 constraint rows (humanoid3d to 28
+contact slots, G1 to 25). Beyond them, up to what one block's shared
+memory holds (``check_fits`` names the largest ``max_contacts``), the
+kernel's shared-memory plan runs the same pipeline with W in shared
+memory, one block of 128 or 256 threads per env (``launch_plan``).
+
 What bounds it on the H100: at humanoid3d size (nv 34, n 76) an env
 moves ~17 KB (explicit J^T; ~10 KB from the parts) and does ~0.78
 MFLOP, so the fp32 rate sets the bound (``bound_ms``). The kernel keeps
@@ -43,6 +49,7 @@ projection runs in registers. See the source for the rest.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -53,10 +60,11 @@ import numpy as np
 import torch
 
 POWER_ITERS = 12  # matches physics/solver.py:_pgs_iterate
-# largest sizes the kernel takes (csrc/fused_solve.cu)
-NV_MAX = 48
-N_MAX = 112
-K_MAX = 37
+# the register plans' range (csrc/fused_solve.cu:REG_NV_MAX ...); larger
+# sizes take the shared-memory plan
+REG_NV_MAX = 48
+REG_N_MAX = 112
+REG_K_MAX = 37
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -131,7 +139,7 @@ def _load(clocks: bool = False):
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             info = lib.fused_solve_info
-            info.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            info.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
             info.restype = ctypes.c_int
             _libs[name] = lib
     return _libs[name]
@@ -139,19 +147,24 @@ def _load(clocks: bool = False):
 
 # ---------------- launch plan ---------------------------------------------
 
-# (TR, TC, RPT, KC, LC) of every plan the kernel is compiled for, in the
-# order they are tried: csrc/fused_solve.cu:FUSED_SOLVE_PLANS.
+# (TR, TC, RPT, KC, LC) of every register plan the kernel is compiled
+# for, in the order they are tried: csrc/fused_solve.cu:FUSED_SOLVE_PLANS.
 PLANS = ((4, 8, 9, 2, 4), (4, 16, 11, 2, 3), (4, 32, 12, 2, 2))
+# the shared-memory plan at its two block sizes, (0, T, 0, 0, 0):
+# csrc/fused_solve.cu:FUSED_SOLVE_SHARED
+SHARED_PLANS = ((0, 128, 0, 0, 0), (0, 256, 0, 0, 0))
 W_REGS_BUDGET = 112        # W values one thread holds in registers
 SMEM_PER_BLOCK = 232_448   # H100: most shared memory one block can use
 THREADS_PER_BLOCK = 1024
 
 
 class LaunchPlan(NamedTuple):
-    """How the kernel lays one env over its threads. Thread tid of an env
-    is (rg, cg) = (tid % tr, tid // tr); it holds W[rg + tr s, col] for
-    s < rpt and its cols_per_thread columns (``plan_cells``)."""
-    tr: int                 # row groups
+    """How the kernel lays one env over its threads. In a register plan
+    thread tid of an env is (rg, cg) = (tid % tr, tid // tr); it holds
+    W[rg + tr s, col] for s < rpt and its cols_per_thread columns. In the
+    shared-memory plan (tr 0) W lies in shared memory and thread tid owns
+    the columns of the units tid, tid + tc, ... (``plan_cells``)."""
+    tr: int                 # row groups; 0: the shared-memory plan
     tc: int                 # column groups
     rpt: int                # rows per thread
     kc: int                 # contacts per column group
@@ -163,27 +176,63 @@ class LaunchPlan(NamedTuple):
     w_regs: int             # W values per thread
     smem_bytes: int         # dynamic shared memory per block
 
+    @property
+    def shared(self) -> bool:
+        """The shared-memory plan (W in shared memory)."""
+        return self.tr == 0
 
+    @property
+    def label(self) -> str:
+        return (f"shared memory, {self.tc} threads" if self.shared
+                else f"{self.tr} x {self.tc}")
+
+
+def shared_smem_bytes(nv: int, n: int, K: int, threads: int) -> int:
+    """Dynamic shared memory of one env in the shared-memory plan
+    (csrc/fused_solve.cu:Shared::floats): the column constants, W, L,
+    three nv-vectors, the vector W v multiplies, mu and the warps'
+    partials."""
+    return 4 * (4 * n + nv * (n | 1) + nv * (nv | 1) + 3 * nv + n + K
+                + 2 * (threads // 32))
+
+
+@functools.lru_cache(maxsize=None)
 def launch_plan(nv: int, n: int, K: int) -> LaunchPlan:
-    """The first of ``PLANS`` that holds (nv, K, L = n - 3K).
+    """The first of ``PLANS`` that holds (nv, K, L = n - 3K) within the
+    register plans' range, else the shared-memory plan if one env fits
+    one block's shared memory; raises a ValueError otherwise.
 
     One env per block: an env of one warp synchronises with __syncwarp,
     and a block of one env needs no named barriers; the registers (220
     a thread at humanoid3d: 8 one-warp envs per SM) rather than the
-    block count limit residency. The plans are the first that fit
-    humanoid3d (one warp) and G1 (two warps), then one for the largest
-    sizes the kernel takes. The shared-memory sum is
-    csrc/fused_solve.cu:Smem::floats."""
+    block count limit residency. The register plans are the first that
+    fit humanoid3d (one warp) and G1 (two warps), then one for the
+    largest sizes they take. The shared-memory plan takes 128 threads an
+    env up to 128 units (a contact, or a limit row), else 256. The
+    shared-memory sums are csrc/fused_solve.cu:Smem::floats and
+    Shared::floats."""
     L = n - 3 * K
-    if nv < 1 or nv > NV_MAX or n > N_MAX or K > K_MAX or L < 0:
-        raise ValueError(f"fused_solve kernel holds nv <= {NV_MAX}, "
-                         f"n <= {N_MAX}, K <= {K_MAX}; got nv={nv}, n={n}, "
+    if nv < 1 or K < 0 or L < 0:
+        raise ValueError(f"fused_solve: no system with nv={nv}, n={n}, "
                          f"K={K}")
-    for tr, tc, rpt, kc, lc in PLANS:
-        if nv <= tr * rpt and K <= tc * kc and L <= tc * lc:
-            break
-    else:
-        raise ValueError(f"no compiled plan holds nv={nv}, K={K}, L={L}")
+    if nv <= REG_NV_MAX and n <= REG_N_MAX and K <= REG_K_MAX:
+        for tr, tc, rpt, kc, lc in PLANS:
+            if nv <= tr * rpt and K <= tc * kc and L <= tc * lc:
+                return _register_plan(nv, n, tr, tc, rpt, kc, lc)
+    shared = SHARED_PLANS[0 if K + L <= 128 else 1]
+    t = shared[1]
+    smem = shared_smem_bytes(nv, n, K, t)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"fused_solve kernel: nv={nv}, n={n}, K={K} needs {smem} B of "
+            f"shared memory per env, more than one block's "
+            f"{SMEM_PER_BLOCK} B")
+    units = -(-(K + L) // t)                # units of thread 0
+    cols = sum(3 if u * t < K else 1 for u in range(units))
+    return LaunchPlan(*shared, t, 1, t, cols, 0, smem)
+
+
+def _register_plan(nv, n, tr, tc, rpt, kc, lc) -> LaunchPlan:
     t = tr * tc
     nw = t // 32
     cpt = 3 * kc + lc
@@ -197,25 +246,34 @@ def launch_plan(nv: int, n: int, K: int) -> LaunchPlan:
     return LaunchPlan(tr, tc, rpt, kc, lc, t, 1, t, cpt, rpt * cpt, smem)
 
 
-def check_fits(nv: int, K: int, L: int) -> None:
-    """Raise a ValueError that names the limit when no compiled plan
-    holds an engine's solve (nv dofs, K contact slots, L limit rows):
-    the card's path has no plain fallback. The CPU path (the plain
-    version) takes any size."""
+def max_contacts_on_card(nv: int, L: int):
+    """The largest K (contact slots) whose env the kernel holds with nv
+    dofs and L limit rows, or None when not even K = 0 fits. The shared
+    memory an env needs grows with K, so the first K that does not fit
+    ends the search."""
+    k = -1
+    while _holds(nv, 3 * (k + 1) + L, k + 1):
+        k += 1
+    return k if k >= 0 else None
+
+
+def check_fits(nv: int, K: int, L: int) -> LaunchPlan:
+    """The launch plan of an engine's solve (nv dofs, K contact slots, L
+    limit rows); a ValueError that names the limit when the kernel holds
+    no such env: the card's path has no plain fallback. The CPU path
+    (the plain version) takes any size."""
     try:
-        launch_plan(nv, 3 * K + L, K)
+        return launch_plan(nv, 3 * K + L, K)
     except ValueError as e:
-        k_max = max((k for k in range(K_MAX + 1)
-                     if _holds(nv, 3 * k + L, k)), default=None)
+        k_max = max_contacts_on_card(nv, L)
         hint = (f"at most max_contacts={k_max} with nv={nv}, L={L}"
                 if k_max is not None else
                 f"no max_contacts fits nv={nv}, L={L}")
         raise ValueError(
-            f"the fused-solve kernel on the card holds nv <= {NV_MAX}, "
-            f"3*K + L <= {N_MAX} constraint rows and K <= {K_MAX} contact "
-            f"slots, within the plans {PLANS}; this engine needs nv={nv}, "
-            f"K={K}, L={L} (3*K + L = {3 * K + L}): {hint}. The CPU path "
-            f"has no such limit. ({e})") from None
+            f"the fused-solve kernel on the card holds an env whose "
+            f"shared-memory plan fits one block ({SMEM_PER_BLOCK} B); this "
+            f"engine needs nv={nv}, K={K}, L={L} (3*K + L = {3 * K + L}): "
+            f"{hint}. The CPU path has no such limit. ({e})") from None
 
 
 def _holds(nv, n, K):
@@ -228,7 +286,16 @@ def _holds(nv, n, K):
 
 def plan_cells(plan: LaunchPlan, nv: int, K: int, L: int):
     """(tid, row, col) for every entry of W a thread of the env holds
-    (csrc/fused_solve.cu:col_of); pad slots are left out."""
+    (csrc/fused_solve.cu:col_of); pad slots are left out. In the
+    shared-memory plan, the entries of the columns a thread owns (its
+    units' columns, whose W^T u and projection it computes)."""
+    if plan.shared:
+        for tid in range(plan.threads_per_env):
+            for u in range(tid, K + L, plan.tc):
+                cols = (u, K + u, 2 * K + u) if u < K else (2 * K + u,)
+                yield from ((tid, row, c) for row in range(nv)
+                            for c in cols)
+        return
     for tid in range(plan.threads_per_env):
         rg, cg = tid % plan.tr, tid // plan.tr
         cols = []
@@ -251,7 +318,7 @@ def kernel_info(nv: int, n: int, K: int, parts: bool = True) -> dict:
     cudaOccupancyMaxActiveBlocksPerMultiprocessor reports (card only)."""
     plan = launch_plan(nv, n, K)
     out = (ctypes.c_int * 4)()
-    err = _load().fused_solve_info(*plan[:5], int(parts), nv, n, out)
+    err = _load().fused_solve_info(*plan[:5], int(parts), nv, n, K, out)
     if err != 0:
         raise RuntimeError(f"fused_solve_info failed: cudaError {err}")
     return {"plan": plan, "regs": out[0], "spill_bytes": out[1],
@@ -371,8 +438,9 @@ def fused_solve(M, JT, qf, aref, imp, active, mu, lam0, *, K: int, L: int,
     """Batched fused solve from an explicit J^T (B, nv, n). CPU tensors
     take ``fused_solve_plain``; CUDA tensors launch the kernel (or
     raise). ``fused_solve.launches`` counts kernel launches of both
-    entries, and ``fused_solve.launches_by_thread`` counts them by the
-    launching thread's ident."""
+    entries, ``fused_solve.launches_by_thread`` counts them by the
+    launching thread's ident and ``fused_solve.launches_by_plan`` by the
+    plan's ``label``."""
     B, nv, n = JT.shape
     if n != 3 * K + L:
         raise ValueError(f"n={n} rows, expected 3*K+L={3 * K + L}")
@@ -393,19 +461,22 @@ def fused_solve(M, JT, qf, aref, imp, active, mu, lam0, *, K: int, L: int,
     with torch.cuda.device(dev):
         out = _launch(_load(), plan, B, nv, K, L, iterations, pyramidal,
                       M.contiguous(), JT.contiguous(), None, vectors)
-    _count_launch()
+    _count_launch(plan)
     return out
 
 
 fused_solve.launches = 0
 fused_solve.launches_by_thread = {}
+fused_solve.launches_by_plan = {}
 
 
-def _count_launch():
+def _count_launch(plan):
     fused_solve.launches += 1
     by_thread = fused_solve.launches_by_thread
     me = threading.get_ident()
     by_thread[me] = by_thread.get(me, 0) + 1
+    by_plan = fused_solve.launches_by_plan
+    by_plan[plan.label] = by_plan.get(plan.label, 0) + 1
 
 
 def build_jt(cd_lin, cd_ang, frame, rpos, w, sign_l, ld_idx):
@@ -486,7 +557,7 @@ def fused_solve_parts(M, cd_lin, cd_ang, frame, rpos, w, sign_l, qf, aref,
     with torch.cuda.device(dev):
         out = _launch(_load(), plan, B, nv, K, L, iterations, pyramidal,
                       M.contiguous(), None, parts, vectors)
-    _count_launch()
+    _count_launch(plan)
     return out
 
 

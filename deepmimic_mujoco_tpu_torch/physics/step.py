@@ -94,9 +94,12 @@ class Engine:
         self.k_slots = min(self.max_contacts, self.n_pair_slots)
         self.n_warm_rows = (3 * self.k_slots + len(self.limit_table[0])
                             + self.k_slots)
-        if self.device.type == "cuda":
-            fused_solve.check_fits(model.nv, self.k_slots,
-                                   len(self.limit_table[0]))
+        # the kernel's launch plan on the card, made once here (the
+        # wrapper's launch_plan caches it); it raises, naming the largest
+        # max_contacts that fits, when the kernel holds no such env
+        self.solve_plan = (fused_solve.check_fits(
+            model.nv, self.k_slots, len(self.limit_table[0]))
+            if self.device.type == "cuda" else None)
         # Warm-starting from the previous step's forces shifts the
         # 50-iteration partial solution; the committed gate policies
         # are trained against it.

@@ -107,6 +107,39 @@ def test_parts_kernel_matches_plain_on_card(cuda_device, dims, B):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("K", [48, 64, 128])
+def test_shared_plan_matches_plain_on_card(cuda_device, K):
+    """The shared-memory plan (G1 with more contact slots than a register
+    plan holds): both entries, both cones, against the plain version,
+    and its phase clocks."""
+    nv, L = 43, 37
+    B = 333
+    assert fs.launch_plan(nv, 3 * K + L, K).shared
+    M, JT, *vectors = (torch.tensor(a, device=cuda_device)
+                       for a in _mk(11 + K, B, nv, K, L))
+    parts, ld_idx = _mk_parts(12 + K, B, nv, K, L)
+    parts = [torch.tensor(a, device=cuda_device) for a in parts]
+    for pyramidal in (False, True):
+        kw = dict(K=K, L=L, iterations=50, pyramidal=pyramidal)
+        before = fs.fused_solve.launches
+        got = fs.fused_solve(M, JT, *vectors, **kw)
+        got_p = fs.fused_solve_parts(M, *parts, *vectors, ld_idx=ld_idx,
+                                     **kw)
+        torch.cuda.synchronize()
+        assert fs.fused_solve.launches == before + 2
+        for want, have in (
+                (fs.fused_solve_plain(M, JT, *vectors, **kw), got),
+                (fs.fused_solve_plain(M, fs.build_jt(*parts, ld_idx),
+                                      *vectors, **kw), got_p)):
+            errs = [_err(a, b) for a, b in zip(want, have)]
+            assert max(errs) < TOL_KERNEL, errs
+    clocks = fs.phase_cycles(M, *parts, *vectors, K=K, L=L, ld_idx=ld_idx,
+                             iterations=50)
+    torch.cuda.synchronize()
+    assert bool((clocks[:, 1:] > clocks[:, :-1]).all())
+
+
+@pytest.mark.gpu
 def test_phase_cycles_on_card(cuda_device):
     nv, K, L = H3D
     M, _, *vectors = (torch.tensor(a, device=cuda_device)
@@ -217,8 +250,14 @@ def test_g1_parts_kernel_matches_plain_on_main_path_inputs(cuda_device):
 
 @pytest.mark.gpu
 def test_engine_on_card_refuses_what_no_plan_holds(cuda_device):
-    with pytest.raises(ValueError, match="max_contacts=25"):
-        DPEnv(motion="walk", robot="unitree_g1", max_contacts=26,
+    """The G1 engine on the card takes 128 slots (the shared-memory
+    plan) and refuses just past what one block's shared memory holds,
+    naming that limit."""
+    env = DPEnv(motion="walk", robot="unitree_g1", max_contacts=128,
+                device=cuda_device)
+    assert env.engine.solve_plan.shared
+    with pytest.raises(ValueError, match="max_contacts=374"):
+        DPEnv(motion="walk", robot="unitree_g1", max_contacts=375,
               device=cuda_device)
 
 
@@ -544,15 +583,21 @@ def test_world1_nccl_on_card_matches_unsharded(cuda_device, tmp_path):
 
 
 def test_check_fits_names_the_limit():
-    """The error an engine on the card raises when no compiled plan holds
-    its solve names the largest max_contacts that fits (runs anywhere)."""
-    fs.check_fits(34, 16, 28)
-    fs.check_fits(43, 24, 37)
-    fs.check_fits(43, 25, 37)
-    with pytest.raises(ValueError, match="at most max_contacts=25"):
-        fs.check_fits(43, 26, 37)
+    """The error an engine on the card raises when the kernel holds no
+    such env names the largest max_contacts that fits: past the register
+    plans, the shared memory of one block (runs anywhere)."""
+    assert fs.check_fits(34, 16, 28)[:2] == (4, 8)
+    assert fs.check_fits(43, 24, 37)[:2] == (4, 16)
+    assert not fs.check_fits(43, 25, 37).shared
+    for nv, L, k_max in ((43, 37, 374), (34, 28, 471)):
+        for K in (26, 29, 64, 128, k_max):
+            assert fs.check_fits(nv, K, L).smem_bytes <= fs.SMEM_PER_BLOCK
+        with pytest.raises(ValueError,
+                           match=f"at most max_contacts={k_max}"):
+            fs.check_fits(nv, k_max + 1, L)
+        assert fs.max_contacts_on_card(nv, L) == k_max
     with pytest.raises(ValueError, match="no max_contacts fits"):
-        fs.check_fits(60, 4, 10)
+        fs.check_fits(250, 4, 10)
 
 
 def test_wrapper_refuses_other_devices():

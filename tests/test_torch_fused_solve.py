@@ -5,13 +5,15 @@ kernel is held to) against the JAX package's Pallas kernel in interpret
 mode (``fused_solve_single(..., interpret=True)``) and against its XLA
 fallback (``physics/solver.py:_pgs_iterate`` over an explicit inverse),
 at humanoid3d (nv 34, K 16, L 28) and G1 (nv 43, K 24, L 37) sizes, with
-both friction cones and a nonzero warm start; the parts entry
-(``fused_solve_parts``, the main path's) against the JAX package's parts
-entry in interpret mode. Tolerance: max|d|/scale < 2e-4, as in
-tests/test_fused_solve.py. Also the kernel's launch plan (which thread
-holds which entry of W) and the bound's operation and byte counts. The
-CUDA kernel itself is held to the plain version on the card by
-tests/test_torch_cuda.py.
+both friction cones and a nonzero warm start, and at the sizes of the
+kernel's shared-memory plan (G1 at 48 and 64 contact slots, humanoid3d
+at 128); the parts entry (``fused_solve_parts``, the main path's)
+against the JAX package's parts entry in interpret mode. Tolerance:
+max|d|/scale < 2e-4, as in tests/test_fused_solve.py. Also the kernel's
+launch plans (which thread holds which entry of W, which plan a size
+takes, the shared-memory limit) and the bound's operation and byte
+counts. The CUDA kernel itself is held to the plain version on the card
+by tests/test_torch_cuda.py.
 """
 import numpy as np
 import pytest
@@ -29,6 +31,9 @@ from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
 
 TOL = 2e-4
 H3D, G1 = (34, 16, 28), (43, 24, 37)
+# sizes of the shared-memory plan: more contact slots than a register
+# plan holds
+G1_K48, G1_K64, H3D_K128 = (43, 48, 37), (43, 64, 37), (34, 128, 28)
 
 
 def _mk(seed, B, nv, K, L):
@@ -94,7 +99,8 @@ def _assert_close(want, got):
         assert err < TOL, (name, err)
 
 
-@pytest.mark.parametrize("dims", [H3D, G1], ids=["h3d", "g1"])
+@pytest.mark.parametrize("dims", [H3D, G1, G1_K64, H3D_K128],
+                         ids=["h3d", "g1", "g1-k64", "h3d-k128"])
 @pytest.mark.parametrize("pyramidal", [False, True],
                          ids=["elliptic", "pyramidal"])
 def test_plain_matches_pgs_fallback(dims, pyramidal):
@@ -122,10 +128,14 @@ def test_plain_matches_pallas_interpret(dims, its, pyramidal):
     _assert_close(want, _plain(arrs, K, L, its, pyramidal))
 
 
-# the parts entry: the same two interpret-mode calls as above
+# the parts entry: the same two interpret-mode calls as above, and G1 at
+# 48 slots (a shared-memory plan size; the JAX kernel's manual-DMA
+# branch) at the same reduced count
 @pytest.mark.parametrize("dims,its,pyramidal",
-                         [(H3D, 50, False), (G1, 10, True)],
-                         ids=["h3d-elliptic", "g1-pyramidal"])
+                         [(H3D, 50, False), (G1, 10, True),
+                          (G1_K48, 10, False)],
+                         ids=["h3d-elliptic", "g1-pyramidal",
+                              "g1-k48-elliptic"])
 def test_parts_matches_pallas_interpret(dims, its, pyramidal):
     nv, K, L = dims
     M, _, qf, aref, imp, active, mu, lam0 = _mk(13 + nv, 2, nv, K, L)
@@ -174,11 +184,66 @@ def test_launch_plan_covers_w(nv, K, L):
     assert plan[:5] in fs.PLANS
 
 
+@pytest.mark.parametrize("nv,K,L", [(43, 26, 37), (34, 29, 28),
+                                    (43, 128, 37), (34, 128, 28),
+                                    (60, 10, 50)],
+                         ids=["43x115", "34x115", "43x421", "34x412",
+                              "60x80"])
+def test_shared_plan_covers_w(nv, K, L):
+    """In the shared-memory plan each column of W (all nv rows) belongs
+    to exactly one thread, a contact's triple to one thread, and the
+    env fits one block."""
+    n = 3 * K + L
+    plan = fs.launch_plan(nv, n, K)
+    assert plan.shared and plan[:5] in fs.SHARED_PLANS
+    cells = [(row, col) for _, row, col in fs.plan_cells(plan, nv, K, L)]
+    assert len(cells) == nv * n
+    assert set(cells) == {(i, c) for i in range(nv) for c in range(n)}
+    owners = {}
+    for tid, _, col in fs.plan_cells(plan, nv, K, L):
+        assert 0 <= tid < plan.threads_per_env
+        owners.setdefault(tid, set()).add(col)
+    for cols in owners.values():
+        for c in cols:
+            if c < K:
+                assert {c + K, c + 2 * K} <= cols
+    assert max(len(c) for c in owners.values()) == plan.cols_per_thread
+    assert plan.threads_per_env == (128 if K + L <= 128 else 256)
+    assert plan.smem_bytes == fs.shared_smem_bytes(nv, n, K, plan.tc)
+    assert plan.smem_bytes <= fs.SMEM_PER_BLOCK
+
+
+def test_launch_plan_picks_shared_beyond_registers():
+    """The main paths keep their register plans; from G1 K 26 and
+    humanoid3d K 29 (past 112 constraint rows) up to K 128 the
+    shared-memory plan holds the env, within one block's shared memory
+    (G1 at 128 slots: 89,320 B, worked by hand)."""
+    assert fs.launch_plan(34, 76, 16)[:5] == (4, 8, 9, 2, 4)
+    assert fs.launch_plan(43, 109, 24)[:5] == (4, 16, 11, 2, 3)
+    for (nv, L), k_reg in (((43, 37), 25), ((34, 28), 28)):
+        assert not fs.launch_plan(nv, 3 * k_reg + L, k_reg).shared
+        for K in range(k_reg + 1, 129):
+            plan = fs.launch_plan(nv, 3 * K + L, K)
+            assert plan.shared, (nv, K)
+            assert plan.smem_bytes <= fs.SMEM_PER_BLOCK
+    # 4 (4 n + nv (n|1) + nv (nv|1) + 3 nv + n + K + 2 * 8), n = 421
+    n = 421
+    assert fs.launch_plan(43, n, 128).smem_bytes == 4 * (
+        4 * n + 43 * n + 43 * 43 + 3 * 43 + n + 128 + 16) == 89320
+    assert fs.launch_plan(34, 412, 128).smem_bytes <= fs.SMEM_PER_BLOCK
+
+
 def test_launch_plan_refuses_what_no_plan_holds():
+    """Past the shared-memory limit (G1 374 slots, humanoid3d 471) no
+    plan holds the env, nor any system whose L alone outgrows a block."""
+    for (nv, L), k_max in (((43, 37), 374), ((34, 28), 471)):
+        fs.launch_plan(nv, 3 * k_max + L, k_max)
+        with pytest.raises(ValueError, match="shared memory"):
+            fs.launch_plan(nv, 3 * (k_max + 1) + L, k_max + 1)
     with pytest.raises(ValueError):
-        fs.launch_plan(fs.NV_MAX + 1, 76, 16)
+        fs.launch_plan(250, 10, 0)
     with pytest.raises(ValueError):
-        fs.launch_plan(34, fs.N_MAX + 1, 16)
+        fs.launch_plan(34, 10, 4)          # L < 0
 
 
 def test_build_jt_matches_explicit_j():

@@ -6,7 +6,8 @@ in tests/test_torch_g1_env.py.
 
 Inputs are clip frames (made with numpy, float32), jittered copies
 lowered into the floor, and a prone pose sunk far enough that the 24
-contact slots saturate. Float32 agreement of FK/com/CRBA/RNE and of
+contact slots saturate; at 128 slots (the card's shared-memory plan)
+none is dropped. Float32 agreement of FK/com/CRBA/RNE and of
 contact distances is held to 1e-5 relative to each quantity's scale;
 the contact sets (slot layout, ``slot_idx``, geoms, condim, overflow)
 must be identical, up to the order of slots whose depths lie within
@@ -251,7 +252,7 @@ def _step_errs(je, te, step, qpos, qvel, ctrl, n_steps, lam0s=None,
         tsolver.fused_solve_parts = entry
     # the carried forces; the carried slot ids of inactive slots may
     # differ at rounding ties (they carry zero force in both)
-    nl = 3 * K + 37
+    nl = 3 * te.k_slots + 37
     return {"qpos": _err(jq, tq_.numpy()), "qvel": _err(jv, tv.numpy()),
             "qacc": _err(jd.qacc, td.qacc.numpy()),
             "qfrc_constraint": _err(jd.qfrc_constraint,
@@ -267,6 +268,36 @@ def test_g1_engine_steps_match(setup, jax_step, n_steps):
     errs = _step_errs(je, te, jax_step, qpos, qvel, ctrl, n_steps)
     bad = {k: v for k, v in errs.items() if not v < TOL_STEP}
     assert not bad, bad
+
+
+def test_g1_engine_step_at_128_contacts(setup):
+    """Euler steps of the nine states with 128 contact slots (the size
+    the card's shared-memory plan takes) against the JAX engine at the
+    same max_contacts: the prone pose, which drops contacts at 24 slots,
+    drops none, and the states agree at TOL_STEP after one step and
+    after a second one warm-started through the 128 x 128 pair-keyed
+    gather."""
+    jm, tm, _, _, qpos, qvel, ctrl = setup
+    je = JEngine(jm, max_contacts=128, integrator=EULER)
+    te = Engine(tm, max_contacts=128, integrator=EULER, device="cpu")
+    assert te.n_constraint_rows == je.n_constraint_rows == 3 * 128 + 37
+    assert te.k_slots == 128
+    fk = tkin.fwd_kinematics(tm, torch.tensor(qpos))
+    for k, dropped in ((K, True), (128, False)):
+        ov = tcol.collide(tm, te.tables, fk, k).overflow.numpy()
+        assert (ov[-1] > 0) == dropped, (k, ov)
+    c128 = tcol.collide(tm, te.tables, fk, 128)
+    assert not c128.overflow.numpy().any()
+    active = (c128.dist < c128.includemargin).sum(1).numpy()
+    assert active[-1] > K, active
+    step = jax.jit(jax.vmap(je.step))
+    for n_steps in (1, 2):
+        lam0s = []
+        errs = _step_errs(je, te, step, qpos, qvel, ctrl, n_steps, lam0s,
+                          ties=True)
+        bad = {k: v for k, v in errs.items() if not v < TOL_STEP}
+        assert not bad, (n_steps, bad)
+    assert float(lam0s[-1].abs().max()) > 0, "no warm start"
 
 
 # the engine options of the recorded fine-tune recipes and their
