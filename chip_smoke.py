@@ -9,11 +9,13 @@ Phases, each printed with its seconds:
      whether cv2 and matplotlib are present: a part that draws with an
      absent one is left out, and the line says which
   1. build: nvcc of every kernel source of the main path and of the
-     fused solve's phase-clock variant, all started together; ptxas's
-     registers and spills (any spill fails the run), and the registers,
-     shared memory and blocks per SM that the occupancy calculator gives
-     at humanoid3d and G1 sizes: the register plans at 16 and 24 contact
-     slots, the shared-memory plan at G1 48 and 128, humanoid3d 128
+     fused solve's phase-clock variant, four translation units of each,
+     all started together, then one link each; ptxas's registers and
+     spills (any spill fails the run), and the registers, shared memory
+     and blocks per SM that the occupancy calculator gives at humanoid3d
+     and G1 sizes: the register plans at 16 and 24 contact slots, the
+     shared-memory plan's instances at G1 26, 48 and 128, humanoid3d 128
+     and 60 dofs
   2. kernel vs plain: both fused-solve entries against the plain torch
      version on random systems (humanoid3d and G1 sizes, both cones,
      nonzero lam0, batch 2048 and 1000): the explicit-J^T entry on random
@@ -185,10 +187,13 @@ Phases, each printed with its seconds:
      held); for r5b the handoff buffer holds rows afterwards
  16. contact-rich: the kernel's shared-memory plan (the sizes no
      register plan holds). (a) Both entries, both cones, on random
-     systems at B 2048 of G1 (nv 43, L 37) at 48, 64 and 128 contact
-     slots and humanoid3d (nv 34, L 28) at 32 and 128, held against the
-     plain version in float64 (by the batch and by each env, the float32
-     plain version's distance beside it) and timed beside the bound.
+     systems at B 2048 of G1 (nv 43, L 37) at 26, 48, 64 and 128 contact
+     slots and humanoid3d (nv 34, L 28) at 29, 32 and 128, held against
+     the plain version in float64 (by the batch and by each env, the
+     float32 plain version's distance beside it) and timed beside the
+     bound; each size's instance with its registers, spills, shared
+     bytes and blocks per SM, the parts entry's time by batch (one env
+     an SM, one wave, 2048) and its cycles per phase.
      (b) The nine G1 states of tests/test_torch_g1.py's fixture (walk
      poses, jittered and sunk ones, the prone getup pose sunk 6 cm)
      tiled to B 2048, one Euler step at 128 slots: the active contacts,
@@ -288,8 +293,9 @@ SWEEP_BATCHES = (256, 1024, 2048, 4096)
 # 43, L 37; humanoid3d nv 34, L 28), the G1 gate replayed at those slots
 # (beside the same actor at the default 24), and the rollout's clip
 CONTACT_RICH_K = 128
-CONTACT_RICH_RANDOM = (("g1", 43, 48, 37), ("g1", 43, 64, 37),
-                       ("g1", 43, 128, 37), ("h3d", 34, 32, 28),
+CONTACT_RICH_RANDOM = (("g1", 43, 26, 37), ("g1", 43, 48, 37),
+                       ("g1", 43, 64, 37), ("g1", 43, 128, 37),
+                       ("h3d", 34, 29, 28), ("h3d", 34, 32, 28),
                        ("h3d", 34, 128, 28))
 GATES_K128 = {"g1_getup_k128": "g1_getup"}
 GETUP_MOTION = "getup_facedown_slow_FSI"
@@ -2121,7 +2127,47 @@ def hold_random(card, dev, label, nv, K, L, B=2048):
                   "of the bound")
             out.update({f"{key}ms": k_ms, f"{key}plain_ms": (p1 + p2) / 2,
                         f"{key}bound_ms": b_ms, f"{key}bound_by": b_by})
+    out.update(shared_plan_profile(
+        card, dev, f"{label} K {K}", (M, *parts, *vectors),
+        dict(K=K, L=L, ld_idx=ld_idx, iterations=50)))
     return out
+
+
+def shared_plan_profile(card, dev, label, args, kw):
+    """The plan's registers, spills, shared bytes and blocks per SM, the
+    parts entry's time by batch (one env per SM, one wave, all of
+    ``args``) and its clock64() cycles per phase (mean over the envs of
+    thread 0), as phase 3 prints them for the register plan."""
+    import torch
+
+    from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
+
+    B, nv = args[0].shape[:2]
+    K, L = kw["K"], kw["L"]
+    info = fs.kernel_info(nv, 3 * K + L, K, parts=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_wave = sms * info["blocks_per_sm"]
+    by_batch = {}
+    for b in sorted({sms, min(per_wave, B), B}):
+        sub = [a[:b] for a in args]
+        by_batch[b] = time_ms(lambda: fs.fused_solve_parts(*sub, **kw), 10)
+    clocks = fs.phase_cycles(*args, **kw)
+    cyc = (clocks[:, 1:] - clocks[:, :-1]).double().mean(0).tolist()
+    total = sum(cyc)
+    print(f"  {label} ({info['plan'].label}) on {card}: {info['regs']} "
+          f"registers, {info['spill_bytes']} local bytes, "
+          f"{info['smem_bytes']} B shared, {info['blocks_per_sm']} blocks "
+          f"per SM ({per_wave} envs per wave); time by batch "
+          + ", ".join(f"B={b} {t:.4f} ms" for b, t in by_batch.items())
+          + f"; cycles per env ({total:.0f} in all): " + ", ".join(
+              f"{name} {c:.0f} ({100 * c / total:.1f}%)"
+              for name, c in zip(fs.PHASES, cyc)))
+    check(all(c > 0 for c in cyc), f"phase clocks not increasing: {cyc}")
+    check(info["spill_bytes"] == 0, f"local memory at {label}")
+    return {"regs": info["regs"], "spill_bytes": info["spill_bytes"],
+            "blocks_per_sm": info["blocks_per_sm"],
+            "ms_by_batch": {str(b): t for b, t in by_batch.items()},
+            "phase_cycles": dict(zip(fs.PHASES, cyc))}
 
 
 def nine_states(model):
@@ -2330,8 +2376,9 @@ def build_kernels():
     ptxas's registers and spills (a spill fails the run), and each
     plan's registers, shared memory and blocks per SM at humanoid3d and
     G1 (the register plans at their main paths' slots, the shared-memory
-    plan at CONTACT_RICH_K and at 48). Returns (spill bytes, {label:
-    kernel_info})."""
+    plan's instances at 26, 48 and CONTACT_RICH_K slots, and at 60
+    dofs).
+    Returns (spill bytes, {label: kernel_info})."""
     from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
 
     tb = time.perf_counter()
@@ -2354,9 +2401,11 @@ def build_kernels():
     info = {}
     for label, (nv, K, L) in (
             ("h3d", (34, 16, 28)), ("g1", (43, 24, 37)),
+            ("g1_k26", (43, 26, 37)),
             ("g1_k48", (43, 48, 37)), (f"g1_k{CONTACT_RICH_K}",
                                        (43, CONTACT_RICH_K, 37)),
-            (f"h3d_k{CONTACT_RICH_K}", (34, CONTACT_RICH_K, 28))):
+            (f"h3d_k{CONTACT_RICH_K}", (34, CONTACT_RICH_K, 28)),
+            ("nv60_k10", (60, 10, 50))):
         info[label] = fs.kernel_info(nv, 3 * K + L, K, parts=True)
         pl = info[label]["plan"]
         print(f"fused_solve plan at {label} (nv={nv}, K={K}, L={L}): "
@@ -2913,6 +2962,11 @@ def main():
         "blocks_per_sm": info["h3d"]["blocks_per_sm"],
         "shared_plan": {k: info[k128][k] for k in (
             "regs", "spill_bytes", "smem_bytes", "blocks_per_sm")},
+        # every shared-memory instance, at the size phase 1 reads it
+        "shared_instances": {
+            label: {"plan": v["plan"].label, **{k: v[k] for k in (
+                "regs", "spill_bytes", "smem_bytes", "blocks_per_sm")}}
+            for label, v in info.items() if v["plan"].shared},
         "paths": {
             **{k: {"library_ms": None, **v} for k, v in rich.items()},
             "finetune_f2": {**recipes["f2"], "library_ms": None},

@@ -58,11 +58,11 @@
 // The thread grid (the plan) is a template constant; the wrapper
 // (ops/fused_solve.py:launch_plan) picks it from FUSED_SOLVE_PLANS and
 // computes the shared-memory bytes by the same sum as Smem::floats.
-// Sizes that no register plan holds (up to REG_N_MAX constraint rows)
-// take the shared-memory plan, fused_solve_shared_kernel below: the same
-// pipeline with W in shared memory, up to what one block's shared memory
-// holds (Shared::floats, mirrored by ops/fused_solve.py:
-// shared_smem_bytes).
+// Sizes that no register plan holds (more than REG_N_MAX constraint
+// rows) take the shared-memory plan, fused_solve_shared_kernel below: the
+// same grid and pipeline with W split between registers and shared
+// memory, up to what one block's shared memory holds (Split::floats,
+// mirrored by ops/fused_solve.py:shared_smem_bytes).
 //
 // Built with -DFUSED_SOLVE_CLOCKS, thread 0 of each env writes clock64()
 // at the 8 phase boundaries into clocks (B, 8); the default build has no
@@ -106,12 +106,14 @@ struct Plan {
   static_assert(T % 32 == 0 && 32 % TR == 0, "plan shape");
 };
 
-// (TR, TC, RPT, KC, LC): the plans the kernel is compiled for, in the
-// order launch_plan tries them (ops/fused_solve.py:PLANS).
+// (index, TR, TC, RPT, KC, LC): the plans the kernel is compiled for, in
+// the order launch_plan tries them (ops/fused_solve.py:PLANS). The index
+// (shared with FUSED_SOLVE_SHARED) picks the translation unit that builds
+// the plan (FS_SHARD, below).
 #define FUSED_SOLVE_PLANS(X) \
-  X(4, 8, 9, 2, 4)           \
-  X(4, 16, 11, 2, 3)         \
-  X(4, 32, 12, 2, 2)
+  X(0, 4, 8, 9, 2, 4)        \
+  X(1, 4, 16, 11, 2, 3)      \
+  X(2, 4, 32, 12, 2, 2)
 
 // Shared-memory layout of one env, in floats (the wrapper's
 // _register_plan computes the same sum): per column group the column
@@ -634,335 +636,804 @@ __global__ void __launch_bounds__(P::T) fused_solve_kernel(Args a) {
 
 // ---- the shared-memory plan ----------------------------------------------
 // For the sizes no register plan holds (more constraint rows than
-// REG_N_MAX: G1 from 26 contact slots, humanoid3d from 29): one block of
-// T threads per env, with W = L^-1 J^T in shared memory, written in place
-// over the staged J^T. Its limit is the shared memory of one block
-// (Shared::floats): G1 at 128 slots (n 421) takes ~89 KB, two blocks an
-// SM. The pipeline and the arithmetic are the register kernel's:
-//   - thread t owns the units t, t + T, ...: unit c < K is contact c (the
-//     columns c, K + c, 2K + c: normal and both tangents, so the cone
-//     projection needs no exchange), unit K + l the limit row 3K + l;
-//   - Cholesky runs in place in shared memory, right-looking, one barrier
-//     per column; W and y are forward substitutions, one column per
-//     thread (y on the last thread), with no barrier;
-//   - W v: warp w takes rows w, w + NW, ...; its lanes stride the columns
-//     and a butterfly of shuffles sums them. W^T u: each thread sums its
-//     own columns over the nv rows (u is a broadcast read). Norms are a
-//     block sum: shuffles, then one shared-memory pass across the warps;
-//   - the vector W v multiplies (the power iterate, then lam) lives in
-//     shared memory; a sweep takes two barriers.
-// It reads W from shared memory twice per matvec, so the shared-memory
-// rate, not the fp32 rate, sets its pace.
-template <int T>
-struct Shared {
-  static constexpr int NW = T / 32;
-  // per column {R, 1/diag, b, active} as float4s (n), W (nv rows, stride
-  // n|1), L (nv rows, stride nv|1), 1/L_kk, y, u = W v, the vector W v
-  // multiplies (n), mu (K), two buffers of per-warp partials
-  __host__ __device__ static constexpr int floats(int nv, int n, int K) {
-    return 4 * n + nv * (n | 1) + nv * (nv | 1) + 3 * nv + n + K + 2 * NW;
+// REG_N_MAX: G1 from 26 contact slots, humanoid3d from 29): one block per
+// env on the register kernel's thread grid, with W split between the
+// registers and shared memory. Thread (rg, cg) owns the rows rg + TR s
+// (s < RPT) and the columns of its units: contact c = cg + TC q (the
+// columns c, K + c, 2K + c, so the cone needs no exchange) and limit row
+// 3K + l with l = TC - 1 - cg + TC p (dealt from the last column group,
+// so no two column groups differ by more than one unit):
+//   - its first KR contacts and LR limits (CR = 3 KR + LR columns) hold
+//     W in registers, as in a register plan; the rest (QS contacts and PS
+//     limits, SC = 3 QS + PS columns, counts that K and L set at run
+//     time) hold W in shared memory, each thread its own slots, laid out
+//     so that a warp reads 32 consecutive floats. Each thread also keeps
+//     the vector W v multiplies for those columns in its own slots;
+//   - W^T u reduces over the row groups as in the register kernel
+//     (colsum); W v over the column groups by rowsum_rs, a reduce-scatter
+//     of the rows across a warp's column groups, one shared-memory pass
+//     over the warps and a gather: no single-thread or per-row serial
+//     phase, one barrier a sweep (two a power iteration, for the norm);
+//   - a sweep works the shared columns two contacts (or two limit rows)
+//     at a time, a power iteration three columns at a time: their loads
+//     and sums interleave, then their projections follow;
+//   - Cholesky in registers and W = L^-1 J^T right-looking, as in the
+//     register kernel (L kept transposed, so a step reads it at fixed
+//     offsets): the shared columns a chunk of CR at a time through the
+//     registers the W tile takes later, then the register columns with y;
+//     J is read or built from the parts straight into its owner's slots
+//     or registers (no staged copy of J^T), the latter row by row;
+//   - the column constants {R, 1/diag, b, active} of slot j of column
+//     group cg lie at cv[j TC + cg], so a warp's 8 column groups read one
+//     128-byte line.
+// Shared memory holds the shared part of W, so it bounds what one env may
+// take (Split::floats, mirrored by ops/fused_solve.py:shared_smem_bytes);
+// the pace is set by the envs an SM holds (three: 168 registers a
+// thread) and by each env's chain of steps, as in the register kernel.
+// Each instance is a register tile (RPT rows x CR columns) and a floor on
+// blocks per SM for ptxas; every one must build without a spill.
+template <int TC_, int RPT_, int KR_, int LR_, int MINB_>
+struct Split {
+  using P = Plan<4, TC_, RPT_, KR_, LR_>;  // the register part's grid
+  static constexpr int TR = P::TR, TC = P::TC, T = P::T, RPT = RPT_;
+  static constexpr int KR = KR_, LR = LR_, CR = P::CPT, MINB = MINB_;
+  // one buffer of per-warp row partials (rowsum_rs: 16 rows a row group)
+  static constexpr int PART = (T / 32) * TR * 16;
+  // contact and limit slots a column group holds in shared memory
+  __host__ __device__ static constexpr int qs(int K) {
+    return (K + TC - 1) / TC > KR ? (K + TC - 1) / TC - KR : 0;
   }
+  __host__ __device__ static constexpr int ps(int L) {
+    return (L + TC - 1) / TC > LR ? (L + TC - 1) / TC - LR : 0;
+  }
+  // the column constants (float4, every slot of every column group), W's
+  // shared part, each thread's slots of the vector, mu of every contact
+  // slot, then the register kernel's L (transposed), 1/L_kk, y and t, and
+  // two buffers of warp partials, which hold the Cholesky's column
+  // buffers and trash line before the first reduction
+  __host__ __device__ static constexpr int floats(int nv, int K, int L) {
+    return 4 * TC * (CR + 3 * qs(K) + ps(L)) +
+           (3 * qs(K) + ps(L)) * (RPT * T + T) + (KR + qs(K)) * TC +
+           nv * (nv | 1) + 3 * nv + 2 * PART;
+  }
+  static_assert(2 * PART >= 2 * Smem<P>::CS + Smem<P>::TRASH,
+                "the Cholesky's buffers fit the partials' room");
 };
 
-// Sum of one value per thread over the block.
-template <int T>
-__device__ __forceinline__ float block_sum(float v, float* red, int& buf,
-                                           int tid) {
+// (index, TC, RPT, KR, LR, MINB): the instances (ops/fused_solve.py:
+// SHARED_PLANS, where launch_plan picks one by nv, K and L): humanoid3d
+// (nv <= 36), G1 (nv <= 44; all of W in registers up to 32 contact
+// slots, then two contacts a thread) and any nv up to 64. MINB 3 caps a
+// thread at 168 registers: three envs an SM.
+#define FUSED_SOLVE_SHARED(X)                                        \
+  X(3, 32, 9, 2, 1, 3) X(4, 32, 11, 1, 2, 3) X(5, 32, 11, 2, 0, 3)  \
+  X(6, 32, 16, 1, 0, 2)
+
+// The contact frame of contact c and G = rpos x frame (its rows), for the
+// parts path.
+__device__ __forceinline__ void contact_frame(const Args& a, long long e,
+                                              int c, float (&fr)[9],
+                                              float (&g)[9]) {
+  const float* f = a.frame + (e * a.K + c) * 9;
+  const float* rp = a.rpos + (e * a.K + c) * 3;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  float* p = red + buf * Shared<T>::NW;
-  if ((tid & 31) == 0) p[tid >> 5] = v;
+  for (int q = 0; q < 9; ++q) fr[q] = f[q];
+  const float rx = rp[0], ry = rp[1], rz = rp[2];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const float fx = fr[3 * r], fy = fr[3 * r + 1], fz = fr[3 * r + 2];
+    g[3 * r] = ry * fz - rz * fy;
+    g[3 * r + 1] = rz * fx - rx * fz;
+    g[3 * r + 2] = rx * fy - ry * fx;
+  }
+}
+
+// J^T[i][rK + c], r = 0, 1, 2: contact c at dof i (i < nv, c < K), read
+// on the explicit path, built as stage_jt builds it on the parts path.
+template <bool PARTS>
+__device__ __forceinline__ void jt_contact(const Args& a, long long e, int c,
+                                           int i, const float (&fr)[9],
+                                           const float (&g)[9],
+                                           float (&out)[3]) {
+  if (!PARTS) {
+    const float* row = a.JT + (e * a.nv + i) * a.n + c;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) out[r] = row[r * a.K];
+  } else {
+    const float* cl = a.cd_lin + (e * a.nv + i) * 3;
+    const float* ca = a.cd_ang + (e * a.nv + i) * 3;
+    const float wv = a.w[(e * a.K + c) * a.nv + i];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const float lin =
+          fr[3 * r] * cl[0] + fr[3 * r + 1] * cl[1] + fr[3 * r + 2] * cl[2];
+      const float ang =
+          g[3 * r] * ca[0] + g[3 * r + 1] * ca[1] + g[3 * r + 2] * ca[2];
+      out[r] = lin * wv + ang * wv;
+    }
+  }
+}
+
+// J^T[i][3K + l]: limit row l at dof i.
+template <bool PARTS>
+__device__ __forceinline__ float jt_limit(const Args& a, long long e, int l,
+                                          int i) {
+  if (!PARTS) return a.JT[(e * a.nv + i) * a.n + 3 * a.K + l];
+  return i == a.ld_idx[l] ? a.sign_l[e * a.L + l] : 0.f;
+}
+
+// J of contact c (its three columns) or of limit row l (one) for a
+// thread's rows, into its shared slots from w (column j, row slot s at
+// w[(j RPT + s) T]); zero outside the env.
+template <class S, bool PARTS>
+__device__ __forceinline__ void store_contact(const Args& a, long long e,
+                                              int c, int rg, float* w) {
+  float fr[9], g[9];
+  if (PARTS && c < a.K) contact_frame(a, e, c, fr, g);
+#pragma unroll
+  for (int s = 0; s < S::RPT; ++s) {
+    const int i = rg + S::TR * s;
+    float v[3] = {0.f, 0.f, 0.f};
+    if (c < a.K && i < a.nv) jt_contact<PARTS>(a, e, c, i, fr, g, v);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) w[(r * S::RPT + s) * S::T] = v[r];
+  }
+}
+
+template <class S, bool PARTS>
+__device__ __forceinline__ void store_limit(const Args& a, long long e, int l,
+                                            int rg, float* w) {
+#pragma unroll
+  for (int s = 0; s < S::RPT; ++s) {
+    const int i = rg + S::TR * s;
+    w[s * S::T] = (l < a.L && i < a.nv) ? jt_limit<PARTS>(a, e, l, i) : 0.f;
+  }
+}
+
+// The register columns of a thread (its first KR contacts, then its first
+// LR limit rows) into W, row by row: each row of cd_lin and cd_ang is
+// read once for all of the thread's contacts.
+template <class S, bool PARTS>
+__device__ __forceinline__ void load_registers(const Args& a, long long e,
+                                               int cg, int rg,
+                                               float (&W)[S::RPT][S::CR]) {
+  float fr[S::KR][9], g[S::KR][9];
+#pragma unroll
+  for (int q = 0; q < S::KR; ++q)
+    if (PARTS && cg + S::TC * q < a.K)
+      contact_frame(a, e, cg + S::TC * q, fr[q], g[q]);
+#pragma unroll
+  for (int s = 0; s < S::RPT; ++s) {
+    const int i = rg + S::TR * s;
+#pragma unroll
+    for (int q = 0; q < S::KR; ++q) {
+      const int c = cg + S::TC * q;
+      float v[3] = {0.f, 0.f, 0.f};
+      if (c < a.K && i < a.nv) jt_contact<PARTS>(a, e, c, i, fr[q], g[q], v);
+#pragma unroll
+      for (int r = 0; r < 3; ++r) W[s][3 * q + r] = v[r];
+    }
+#pragma unroll
+    for (int p = 0; p < S::LR; ++p) {
+      const int l = S::TC - 1 - cg + S::TC * p;
+      W[s][3 * S::KR + p] =
+          (l < a.L && i < a.nv) ? jt_limit<PARTS>(a, e, l, i) : 0.f;
+    }
+  }
+}
+
+// X = L^-1 X for the C columns of X (and y = L^-1 y when WITH_Y),
+// right-looking: row k = kr + TR ks lives in slot ks of row group kr; its
+// owner scales it, every thread of its column group takes it by __shfl
+// and updates its rows below k (the register kernel's phase 2). Ls holds
+// L transposed (column k of L is row k of Ls, read at fixed offsets).
+template <class S, int C, bool WITH_Y>
+__device__ __forceinline__ void fwd_solve(float (&X)[S::RPT][C],
+                                          float (&y)[S::RPT],
+                                          const float* Ls, const float* inv_ld,
+                                          int nv, int ldl, int rg, int src0) {
+#pragma unroll
+  for (int ks = 0; ks < S::RPT; ++ks) {
+#pragma unroll 1
+    for (int kr = 0; kr < S::TR; ++kr) {
+      const int k = kr + S::TR * ks;
+      if (k >= nv) break;
+      const float sc = rg == kr ? inv_ld[k] : 1.f;
+#pragma unroll
+      for (int j = 0; j < C; ++j) X[ks][j] *= sc;
+      float xk[C];
+#pragma unroll
+      for (int j = 0; j < C; ++j) xk[j] = __shfl_sync(FULL, X[ks][j], src0 + kr);
+      float yk = 0.f;
+      if (WITH_Y) {
+        y[ks] *= sc;
+        yk = __shfl_sync(FULL, y[ks], src0 + kr);
+      }
+#pragma unroll
+      for (int s = ks; s < S::RPT; ++s) {
+        const int i = rg + S::TR * s;
+        const float l = (i > k && i < nv) ? Ls[k * ldl + i] : 0.f;
+#pragma unroll
+        for (int j = 0; j < C; ++j) X[s][j] = fmaf(-l, xk[j], X[s][j]);
+        if (WITH_Y) y[s] = fmaf(-l, yk, y[s]);
+      }
+    }
+  }
+}
+
+// Sum of RPT row partials over the TC column groups (the W v side), for
+// the shared-memory plan: the 8 column groups of a warp reduce-scatter
+// the rows (padded to 16: each lane keeps rows s0, s0 + 1 with s0 =
+// 8 b4 + 4 b3 + 2 b2 from its lane bits), one shared-memory pass sums
+// the warps' partials of those two rows, and the lanes gather the 16 back
+// in the reverse order. 28 shuffles and 2 NW reads a thread, against
+// rowsum's 3 RPT shuffles and NW RPT reads. p is one buffer of
+// Split::PART floats.
+// One level of rowsum_rs: lanes whose bit M is set keep the upper H of
+// the first 2H values, the others the lower H; each adds its partner's.
+template <int H, int M>
+__device__ __forceinline__ void scatter_level(float (&v)[16], int lane) {
+  const bool hi = lane & M;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = hi ? v[i] : v[i + H];
+    const float keep = hi ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(FULL, send, M);
+  }
+}
+
+// The reverse: H values become 2H, the partner's half beside one's own.
+template <int H, int M>
+__device__ __forceinline__ void gather_level(float (&v)[16], int lane) {
+  const bool hi = lane & M;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float o = __shfl_xor_sync(FULL, v[i], M);
+    v[i + H] = hi ? v[i] : o;
+    v[i] = hi ? o : v[i];
+  }
+}
+
+template <class S>
+__device__ __forceinline__ void rowsum_rs(float (&u)[S::RPT], float* p,
+                                          int tid) {
+  static_assert(S::TR == 4 && S::RPT <= 16, "rowsum_rs: 4 row groups");
+  constexpr int NW = S::T / 32;
+  const int lane = tid & 31, rg = lane & 3;
+  float v[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) v[i] = i < S::RPT ? u[i] : 0.f;
+  scatter_level<8, 16>(v, lane);
+  scatter_level<4, 8>(v, lane);
+  scatter_level<2, 4>(v, lane);
+  const int s0 = (lane >> 4 & 1) * 8 + (lane >> 3 & 1) * 4 + (lane >> 2 & 1) * 2;
+  float* q = p + rg * 16 + s0;
+  q[(tid >> 5) * S::TR * 16] = v[0];
+  q[(tid >> 5) * S::TR * 16 + 1] = v[1];
   __syncthreads();
-  v = 0.f;
+  v[0] = v[1] = 0.f;
 #pragma unroll
-  for (int w = 0; w < Shared<T>::NW; ++w) v += p[w];
-  buf ^= 1;
-  return v;
+  for (int w = 0; w < NW; ++w) {
+    v[0] += q[w * S::TR * 16];
+    v[1] += q[w * S::TR * 16 + 1];
+  }
+  gather_level<2, 4>(v, lane);
+  gather_level<4, 8>(v, lane);
+  gather_level<8, 16>(v, lane);
+#pragma unroll
+  for (int s = 0; s < S::RPT; ++s) u[s] = v[s];
 }
 
-// u = W v; ends with a barrier, so u is read after it.
-template <int T>
-__device__ __forceinline__ void wv_rows(const float* Ws, int ldw,
-                                        const float* v, float* u, int nv,
-                                        int n, int tid) {
-  const int lane = tid & 31;
-  for (int i = tid >> 5; i < nv; i += Shared<T>::NW) {
-    const float* w = Ws + i * ldw;
-    float a0 = 0.f, a1 = 0.f;
-    int j = lane;
-    for (; j + 32 < n; j += 64) {
-      a0 = fmaf(w[j], v[j], a0);
-      a1 = fmaf(w[j + 32], v[j + 32], a1);
+// The shared part of u = W v: u[s] += sum over the thread's shared
+// columns of W[s][j] v[j], v[j] = vs[j T] (in the power iteration
+// vs[j T] / dn * active).
+template <class S, bool POWER>
+__device__ __forceinline__ void wv_shared(const float* Ws, const float* vs,
+                                          const float4* cvs, int SC, float dn,
+                                          float (&u)[S::RPT]) {
+#pragma unroll 4
+  for (int j = 0; j < SC; ++j) {
+    float v = vs[j * S::T];
+    if (POWER) v = __fdividef(v, dn) * cvs[j * S::TC].w;
+    const float* w = Ws + j * S::RPT * S::T;
+#pragma unroll
+    for (int s = 0; s < S::RPT; ++s) u[s] = fmaf(w[s * S::T], v, u[s]);
+  }
+}
+
+// g[c] = (W^T u) over the env of the C shared columns j0 + c; a column
+// past jn reads column 0 instead (its g is not used). Each column sums its
+// rows in two chains, and the C columns' loads and sums interleave.
+template <class S, int C>
+__device__ __forceinline__ void wtu_shared(const float* Wt, int j0, int jn,
+                                           const float (&u)[S::RPT],
+                                           float (&g)[C]) {
+  const float* w[C];
+  float a0[C], a1[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    w[c] = Wt + (j0 + c < jn ? j0 + c : 0) * S::RPT * S::T;
+    a0[c] = a1[c] = 0.f;
+  }
+#pragma unroll
+  for (int s = 0; s < S::RPT; s += 2)
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      a0[c] = fmaf(w[c][s * S::T], u[s], a0[c]);
+      if (s + 1 < S::RPT) a1[c] = fmaf(w[c][(s + 1) * S::T], u[s + 1], a1[c]);
     }
-    if (j < n) a0 = fmaf(w[j], v[j], a0);
-    float acc = a0 + a1;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(FULL, acc, o);
-    if (lane == 0) u[i] = acc;
-  }
-  __syncthreads();
+  for (int c = 0; c < C; ++c) g[c] = colsum<typename S::P>(a0[c] + a1[c]);
 }
 
-// The NC columns c[] of X (rows of stride ldx) become L^-1 X, one thread.
-template <int NC>
-__device__ __forceinline__ void fwd_cols(const float* Ls, int ldl,
-                                         const float* inv_ld, int nv,
-                                         float* X, int ldx,
-                                         const int (&c)[NC]) {
-  for (int k = 0; k < nv; ++k) {
-    const float* lk = Ls + k * ldl;
-    float s[NC];
-#pragma unroll
-    for (int q = 0; q < NC; ++q) s[q] = X[k * ldx + c[q]];
-    for (int m = 0; m < k; ++m) {
-      const float l = lk[m];
-#pragma unroll
-      for (int q = 0; q < NC; ++q) s[q] = fmaf(-l, X[m * ldx + c[q]], s[q]);
-    }
-    const float d = inv_ld[k];
-#pragma unroll
-    for (int q = 0; q < NC; ++q) X[k * ldx + c[q]] = s[q] * d;
-  }
-}
-
-// (W^T u)[c[q]] for the NC columns c[] of W.
-template <int NC>
-__device__ __forceinline__ void wtu_cols(const float* Ws, int ldw,
-                                         const float* u, int nv,
-                                         const int (&c)[NC], float (&g)[NC]) {
-#pragma unroll
-  for (int q = 0; q < NC; ++q) g[q] = 0.f;
-  for (int i = 0; i < nv; ++i) {
-    const float ui = u[i];
-    const float* w = Ws + i * ldw;
-#pragma unroll
-    for (int q = 0; q < NC; ++q) g[q] = fmaf(w[c[q]], ui, g[q]);
-  }
-}
-
-// The column constants {R, 1/diag, b, active} of the NC columns c[]; adds
-// each column's active^2 to s2 (the power iteration's start).
-template <int NC>
-__device__ __forceinline__ void col_consts(const Args& a, long long e,
-                                           const float* Ws, int ldw,
-                                           const float* y, float4* cv,
-                                           const int (&c)[NC], float& s2) {
-  float sw[NC], sb[NC];
-#pragma unroll
-  for (int q = 0; q < NC; ++q) sw[q] = sb[q] = 0.f;
-  for (int i = 0; i < a.nv; ++i) {
-    const float* w = Ws + i * ldw;
-    const float yi = y[i];
-#pragma unroll
-    for (int q = 0; q < NC; ++q) {
-      sw[q] = fmaf(w[c[q]], w[c[q]], sw[q]);
-      sb[q] = fmaf(w[c[q]], yi, sb[q]);
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < NC; ++q) {
-    const size_t o = e * a.n + c[q];
-    const float diagA = fmaxf(sw[q], 1e-8f);
-    const float im = fminf(fmaxf(a.imp[o], 1e-5f), 1.f - 1e-5f);
-    const float r = (1.f - im) / im * diagA;
-    const float act = a.active[o];
-    cv[c[q]] = make_float4(r, 1.f / fmaxf(diagA + r, 1e-8f),
-                           sb[q] - a.aref[o], act);
-    s2 = fmaf(act, act, s2);
-  }
-}
-
-template <int T, bool PARTS, bool PYR>
-__global__ void __launch_bounds__(T) fused_solve_shared_kernel(Args a) {
+template <class S, bool PARTS, bool PYR>
+__global__ void __launch_bounds__(S::T, S::MINB)
+    fused_solve_shared_kernel(Args a) {
+  using P = typename S::P;
+  constexpr int TR = S::TR, TC = S::TC, T = S::T, RPT = S::RPT;
+  constexpr int KR = S::KR, LR = S::LR, CR = S::CR;
+  constexpr int MC = Smem<P>::MC, CS = Smem<P>::CS;
   extern __shared__ __align__(16) float fs_smem[];
-  const int nv = a.nv, n = a.n, K = a.K, L = a.L, U = K + L;
-  const int ldl = nv | 1, ldw = n | 1;
+  const int nv = a.nv, n = a.n, K = a.K, L = a.L;
+  const int QS = S::qs(K), PS = S::ps(L), SC = 3 * QS + PS;
+  const int ldl = nv | 1;
   float4* cv = reinterpret_cast<float4*>(fs_smem);  // column constants
-  float* Ws = fs_smem + 4 * n;                      // J^T, then W
-  float* Ls = Ws + nv * ldw;                        // M, then L
+  float* Ws = fs_smem + 4 * TC * (CR + SC);         // W's shared part
+  float* vbuf = Ws + SC * RPT * T;                  // v, then lam
+  float* mus = vbuf + SC * T;                       // mu
+  float* Ls = mus + (KR + QS) * TC;                 // L^T, upper triangle
   float* inv_ld = Ls + nv * ldl;                    // 1 / L[k][k]
   float* ybuf = inv_ld + nv;                        // y = L^-1 qf
-  float* ubuf = ybuf + nv;                          // u = W v
-  float* vbuf = ubuf + nv;                          // v, then lam
-  float* mus = vbuf + n;                            // mu
-  float* red = mus + K;                             // per-warp partials
+  float* tbuf = ybuf + nv;                          // t = W lam
+  float* part = tbuf + nv;                          // per-warp partials
+  float* colbuf = part;                     // Cholesky columns, then
+  float* trash = part + 2 * CS;             //   non-owners' stores
+  // the two partial buffers in turn: each reduction takes the other one
+  // than the last, so one barrier a reduction suffices
+  const int tid = threadIdx.x;
   int buf = 0;
-  const int tid = threadIdx.x, lane = tid & 31;
+  auto red = [&]() -> float* {
+    buf ^= 1;
+    return part + (buf ^ 1) * S::PART;
+  };
+  auto sum_all = [&](float v) {  // allsum over the buffer red() gives
+    int b = 0;
+    return allsum<P>(v, red(), b, tid);
+  };
+  const int rg = tid % TR, cg = tid / TR;
+  const int src0 = (tid & 31) & ~(TR - 1);  // lane of row group 0
   const long long e = blockIdx.x;
+  const float4* cvp = cv + cg;    // slot j at cvp[j * TC]
+  const float4* cvs = cvp + CR * TC;
+  float* Wt = Ws + tid;           // shared column j, row slot s at
+  float* vt = vbuf + tid;         //   Wt[(j RPT + s) T]; vector at vt[j T]
+  // global column of slot j of column group g: the register slots, then
+  // the shared ones; -1 for a pad slot
+  auto col_of = [&](int j, int g) -> int {
+    int q = -1, r = 0, p = 0;
+    if (j < 3 * KR) {
+      q = j / 3;
+      r = j % 3;
+    } else if (j < CR) {
+      p = j - 3 * KR;
+    } else if (j < CR + 3 * QS) {
+      q = KR + (j - CR) / 3;
+      r = (j - CR) % 3;
+    } else {
+      p = LR + j - CR - 3 * QS;
+    }
+    if (q >= 0) {
+      const int c = g + TC * q;
+      return c < K ? r * K + c : -1;
+    }
+    const int l = TC - 1 - g + TC * p;
+    return l < L ? 3 * K + l : -1;
+  };
   STAMP(0);
 
-  // ---- 0. load: M, J^T (built from the parts on that path), mu ----------
-  for (int idx = tid; idx < nv * nv; idx += T)
-    Ls[(idx / nv) * ldl + idx % nv] = a.M[e * nv * nv + idx];
-  stage_jt<PARTS, T>(a, e, Ws, ldw, tid);
-  for (int c = tid; c < K; c += T) mus[c] = a.mu[e * K + c];
-  __syncthreads();
+  // ---- 0. load: M into registers (as the register kernel), J of the
+  // shared columns into the thread's slots, mu, qf -------------------------
+  float A[RPT][MC];
+#pragma unroll
+  for (int s = 0; s < RPT; ++s) {
+    const int i = rg + TR * s;
+#pragma unroll
+    for (int t = 0; t < MC; ++t) {
+      const int k = cg + TC * t;
+      A[s][t] = (i < nv && k < nv) ? a.M[(e * nv + i) * nv + k] : 0.f;
+    }
+  }
+#pragma unroll 2
+  for (int q = 0; q < QS; ++q) {
+    const int c = cg + TC * (KR + q);
+    store_contact<S, PARTS>(a, e, c, rg, Wt + 3 * q * RPT * T);
+    if (rg == 0) mus[(KR + q) * TC + cg] = c < K ? a.mu[e * K + c] : 0.f;
+  }
+#pragma unroll 1
+  for (int p = 0; p < PS; ++p)
+    store_limit<S, PARTS>(a, e, TC - 1 - cg + TC * (LR + p), rg,
+                          Wt + (3 * QS + p) * RPT * T);
+#pragma unroll
+  for (int q = 0; q < KR; ++q) {
+    const int c = cg + TC * q;
+    if (rg == 0) mus[q * TC + cg] = c < K ? a.mu[e * K + c] : 0.f;
+  }
   STAMP(1);
 
-  // ---- 1. Cholesky, right-looking, in place ------------------------------
-  // Column j is final when step j starts: each thread scales the entries
-  // it needs by d = 1/sqrt(pivot) and updates its share of the trailing
-  // lower triangle. Column k is scaled by 1/L_kk after the loop.
-  for (int j = 0; j < nv; ++j) {
-    const float d = rsqrtf(fmaxf(Ls[j * ldl + j], 1e-12f));
-    if (tid == 0) inv_ld[j] = d;
-    const int m = nv - 1 - j;
-    for (int idx = tid; idx < m * m; idx += T) {
-      const int i = j + 1 + idx / m, k = j + 1 + idx % m;
-      if (k <= i)
-        Ls[i * ldl + k] -= (Ls[i * ldl + j] * d) * (Ls[k * ldl + j] * d);
+  // ---- 1. Cholesky, right-looking, in registers (the register kernel's
+  // phase 1) ---------------------------------------------------------------
+  int cb = 0;
+#pragma unroll
+  for (int jt = 0; jt < MC; ++jt) {
+#pragma unroll 1
+    for (int jc = 0; jc < TC; ++jc) {
+      const int j = jc + TC * jt;
+      if (j >= nv) break;
+      float* col = colbuf + cb * CS;
+      float* dst = cg == jc ? col + rg : trash + tid;
+#pragma unroll
+      for (int s = 0; s < RPT; ++s) dst[TR * s] = A[s][jt];
+      __syncthreads();
+      const float d = rsqrtf(fmaxf(col[j], 1e-12f));
+      if (tid == 0) inv_ld[j] = d;
+      float ci[RPT], ck[MC];
+#pragma unroll
+      for (int s = 0; s < RPT; ++s) {
+        const int i = rg + TR * s;
+        ci[s] = (i > j && i < nv) ? col[i] * d : 0.f;
+      }
+#pragma unroll
+      for (int t = 0; t < MC; ++t) {
+        const int k = cg + TC * t;
+        ck[t] = k > j ? col[k] * d : 0.f;
+      }
+#pragma unroll
+      for (int s = 0; s < RPT; ++s)
+#pragma unroll
+        for (int t = 0; t < MC; ++t) A[s][t] -= ci[s] * ck[t];
+      cb ^= 1;
     }
-    __syncthreads();
   }
-  for (int idx = tid; idx < nv * nv; idx += T) {
-    const int i = idx / nv, k = idx - (idx / nv) * nv;
-    if (k <= i) Ls[i * ldl + k] *= inv_ld[k];
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < RPT; ++s) {
+    const int i = rg + TR * s;
+#pragma unroll
+    for (int t = 0; t < MC; ++t) {
+      const int k = cg + TC * t;
+      if (k <= i && i < nv) Ls[k * ldl + i] = A[s][t] * inv_ld[k];
+    }
   }
   __syncthreads();
   STAMP(2);
 
-  // ---- 2. W = L^-1 J^T by columns, y = L^-1 qf on the last thread --------
-  for (int u = tid; u < U; u += T) {
-    if (u < K) {
-      const int c[3] = {u, K + u, 2 * K + u};
-      fwd_cols<3>(Ls, ldl, inv_ld, nv, Ws, ldw, c);
-    } else {
-      const int c[1] = {2 * K + u};
-      fwd_cols<1>(Ls, ldl, inv_ld, nv, Ws, ldw, c);
-    }
+  // ---- 2. W = L^-1 J^T and y = L^-1 qf, right-looking: the shared
+  // columns CR at a time through the W tile's registers, then the
+  // register columns (read or built from the parts here) with y ----------
+  float W[RPT][CR], y[RPT];
+#pragma unroll 1
+  for (int j0 = 0; j0 < SC; j0 += CR) {
+#pragma unroll
+    for (int s = 0; s < RPT; ++s)
+#pragma unroll
+      for (int j = 0; j < CR; ++j)
+        W[s][j] = j0 + j < SC ? Wt[((j0 + j) * RPT + s) * T] : 0.f;
+    fwd_solve<S, CR, false>(W, y, Ls, inv_ld, nv, ldl, rg, src0);
+#pragma unroll
+    for (int s = 0; s < RPT; ++s)
+#pragma unroll
+      for (int j = 0; j < CR; ++j)
+        if (j0 + j < SC) Wt[((j0 + j) * RPT + s) * T] = W[s][j];
   }
-  if (tid == T - 1) {
-    for (int i = 0; i < nv; ++i) ybuf[i] = a.qf[e * nv + i];
-    const int c[1] = {0};
-    fwd_cols<1>(Ls, ldl, inv_ld, nv, ybuf, 1, c);
+  load_registers<S, PARTS>(a, e, cg, rg, W);
+#pragma unroll
+  for (int s = 0; s < RPT; ++s) {
+    const int i = rg + TR * s;
+    y[s] = i < nv ? a.qf[e * nv + i] : 0.f;
   }
-  __syncthreads();
+  fwd_solve<S, CR, true>(W, y, Ls, inv_ld, nv, ldl, rg, src0);
+  if (cg == 0) {
+#pragma unroll
+    for (int s = 0; s < RPT; ++s)
+      if (rg + TR * s < nv) ybuf[rg + TR * s] = y[s];
+  }
   STAMP(3);
 
-  // ---- 3. diagA, R, inverse diagonal, b: the column constants ------------
-  float s2 = 0.f;
-  for (int u = tid; u < U; u += T) {
-    if (u < K) {
-      const int c[3] = {u, K + u, 2 * K + u};
-      col_consts<3>(a, e, Ws, ldw, ybuf, cv, c, s2);
-    } else {
-      const int c[1] = {2 * K + u};
-      col_consts<1>(a, e, Ws, ldw, ybuf, cv, c, s2);
+  // ---- 3. diagA, R, inverse diagonal, b: the column constants ----------
+  // Each column group's sums over its rows go to its slots first; then
+  // every thread takes (slot, column group) pairs in turn, so the reads
+  // of imp, aref and active are shared out and coalesced.
+#pragma unroll
+  for (int j = 0; j < CR; ++j) {
+    float sw = 0.f, sb = 0.f;
+#pragma unroll
+    for (int s = 0; s < RPT; ++s) {
+      sw = fmaf(W[s][j], W[s][j], sw);
+      sb = fmaf(W[s][j], y[s], sb);
     }
+    sw = colsum<P>(sw);
+    sb = colsum<P>(sb);
+    if (rg == 0) cv[j * TC + cg] = make_float4(sw, sb, 0.f, 0.f);
   }
+#pragma unroll 1
+  for (int j = 0; j < SC; ++j) {
+    float sw = 0.f, sb = 0.f;
+#pragma unroll
+    for (int s = 0; s < RPT; ++s) {
+      const float w = Wt[(j * RPT + s) * T];
+      sw = fmaf(w, w, sw);
+      sb = fmaf(w, y[s], sb);
+    }
+    sw = colsum<P>(sw);
+    sb = colsum<P>(sb);
+    if (rg == 0) cv[(CR + j) * TC + cg] = make_float4(sw, sb, 0.f, 0.f);
+  }
+  __syncthreads();
+#pragma unroll 2
+  for (int idx = tid; idx < (CR + SC) * TC; idx += T) {
+    const int c = col_of(idx / TC, idx % TC);
+    const size_t o = e * n + c;
+    const float4 sums = cv[idx];
+    const float diagA = fmaxf(sums.x, 1e-8f);
+    const float im = c >= 0 ? fminf(fmaxf(a.imp[o], 1e-5f), 1.f - 1e-5f) : 0.5f;
+    const float r = (1.f - im) / im * diagA;
+    cv[idx] = make_float4(r, 1.f / fmaxf(diagA + r, 1e-8f),
+                          sums.y - (c >= 0 ? a.aref[o] : 0.f),
+                          c >= 0 ? a.active[o] : 0.f);
+  }
+  __syncthreads();
   STAMP(4);
 
   // ---- 4. power iteration for the step size -----------------------------
-  // vbuf holds v = vec * active; each thread writes its own columns
+  // The shared columns keep vec unnormalised in their slots, divided by
+  // the last norm dn when read (the register kernel divides at once).
+  float vec[CR], v[CR], u[RPT];
+  float dn;
   {
-    const float anrm = fmaxf(fsqrt(block_sum<T>(s2, red, buf, tid)), 1e-12f);
-    for (int c = tid; c < n; c += T) {
-      const float act = cv[c].w;
-      vbuf[c] = __fdividef(act, anrm) * act;
+    float s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < CR; ++j) {
+      vec[j] = cvp[j * TC].w;
+      s2 = fmaf(vec[j], vec[j], s2);
     }
+#pragma unroll 1
+    for (int j = 0; j < SC; ++j) {
+      const float act = cvs[j * TC].w;
+      vt[j * T] = act;
+      s2 = fmaf(act, act, s2);
+    }
+    dn = fmaxf(fsqrt(sum_all(s2)), 1e-12f);
+#pragma unroll
+    for (int j = 0; j < CR; ++j) vec[j] = __fdividef(vec[j], dn);
   }
   float lam_max = 1.f;
+#pragma unroll 1
   for (int it = 0; it <= POWER_ITERS; ++it) {
-    __syncthreads();
-    wv_rows<T>(Ws, ldw, vbuf, ubuf, nv, n, tid);
-    float p2 = 0.f;
-    for (int u = tid; u < U; u += T) {
-      if (u < K) {
-        const int c[3] = {u, K + u, 2 * K + u};
-        float g[3];
-        wtu_cols<3>(Ws, ldw, ubuf, nv, c, g);
 #pragma unroll
-        for (int q = 0; q < 3; ++q) {
-          const float4 k = cv[c[q]];
-          const float vec = k.y * (g[q] + k.x * vbuf[c[q]]) * k.w;
-          vbuf[c[q]] = vec;
-          p2 = fmaf(vec, vec, p2);
+    for (int j = 0; j < CR; ++j) v[j] = vec[j] * cvp[j * TC].w;
+#pragma unroll
+    for (int s = 0; s < RPT; ++s) {
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < CR; ++j) acc = fmaf(W[s][j], v[j], acc);
+      u[s] = acc;
+    }
+    wv_shared<S, true>(Wt, vt, cvs, SC, dn, u);
+    rowsum_rs<S>(u, red(), tid);
+    float s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < CR; ++j) {
+      const float4 c = cvp[j * TC];
+      const float g = wtu<P>(W, u, j) + c.x * v[j];
+      vec[j] = c.y * g * c.w;
+      s2 = fmaf(vec[j], vec[j], s2);
+    }
+#pragma unroll 1
+    for (int j0 = 0; j0 < SC; j0 += 3) {
+      float g[3], vj[3];
+      float4 c[3];
+      wtu_shared<S, 3>(Wt, j0, SC, u, g);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const int j = j0 + q < SC ? j0 + q : 0;
+        c[q] = cvs[j * TC];
+        vj[q] = __fdividef(vt[j * T], dn) * c[q].w;
+      }
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const float vn = c[q].y * (g[q] + c[q].x * vj[q]) * c[q].w;
+        if (j0 + q < SC) {
+          vt[(j0 + q) * T] = vn;
+          s2 = fmaf(vn, vn, s2);
         }
-      } else {
-        const int c[1] = {2 * K + u};
-        float g[1];
-        wtu_cols<1>(Ws, ldw, ubuf, nv, c, g);
-        const float4 k = cv[c[0]];
-        const float vec = k.y * (g[0] + k.x * vbuf[c[0]]) * k.w;
-        vbuf[c[0]] = vec;
-        p2 = fmaf(vec, vec, p2);
       }
     }
     // the last pass only reads the norm: lam_max keeps its value
-    const float nrm = fsqrt(block_sum<T>(p2, red, buf, tid));
-    const float dn = fmaxf(nrm, 1e-12f);
-    for (int c = tid; c < n; c += T) vbuf[c] = __fdividef(vbuf[c], dn) *
-                                               cv[c].w;
+    const float nrm = fsqrt(sum_all(s2));
+    dn = fmaxf(nrm, 1e-12f);
+#pragma unroll
+    for (int j = 0; j < CR; ++j) vec[j] = __fdividef(vec[j], dn);
     lam_max = fmaxf(nrm, 1.f);
   }
   const float step = fminf(1.5f / lam_max, 1.f);
-  __syncthreads();
   STAMP(5);
 
   // ---- 5. projected sweeps from project(lam0) ---------------------------
-  for (int u = tid; u < U; u += T) {
-    const long long o = e * n;
-    if (u < K) {
-      const int c0 = u, c1 = K + u, c2 = 2 * K + u;
-      cone<PYR>(a.lam0[o + c0], a.lam0[o + c1], a.lam0[o + c2], mus[u],
-                cv[c0].w, cv[c1].w, cv[c2].w, vbuf[c0], vbuf[c1], vbuf[c2]);
-    } else {
-      const int c = 2 * K + u;
-      vbuf[c] = fmaxf(a.lam0[o + c], 0.f) * cv[c].w;
+  float lam[CR];
+  {
+    float ac[CR];
+#pragma unroll
+    for (int j = 0; j < CR; ++j) {
+      const int c = col_of(j, cg);
+      lam[j] = c >= 0 ? a.lam0[e * n + c] : 0.f;
+      ac[j] = cvp[j * TC].w;
+    }
+    float mu[KR];
+#pragma unroll
+    for (int q = 0; q < KR; ++q) mu[q] = mus[q * TC + cg];
+    project<P, PYR>(lam, ac, mu, lam);
+  }
+#pragma unroll 1
+  for (int q = 0; q < QS; ++q) {
+    float l0[3], ac[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const int c = col_of(CR + 3 * q + r, cg);
+      l0[r] = c >= 0 ? a.lam0[e * n + c] : 0.f;
+      ac[r] = cvs[(3 * q + r) * TC].w;
+    }
+    cone<PYR>(l0[0], l0[1], l0[2], mus[(KR + q) * TC + cg], ac[0], ac[1], ac[2],
+              vt[3 * q * T], vt[(3 * q + 1) * T], vt[(3 * q + 2) * T]);
+  }
+#pragma unroll 1
+  for (int p = 0; p < PS; ++p) {
+    const int j = 3 * QS + p, c = col_of(CR + j, cg);
+    vt[j * T] = fmaxf(c >= 0 ? a.lam0[e * n + c] : 0.f, 0.f) *
+                cvs[j * TC].w;
+  }
+#pragma unroll 1
+  for (int it = 0; it < a.iterations; ++it) {
+#pragma unroll
+    for (int s = 0; s < RPT; ++s) {
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < CR; ++j) acc = fmaf(W[s][j], lam[j], acc);
+      u[s] = acc;
+    }
+    wv_shared<S, false>(Wt, vt, cvs, SC, 1.f, u);
+    rowsum_rs<S>(u, red(), tid);
+    {
+      float x[CR], ac[CR];
+#pragma unroll
+      for (int j = 0; j < CR; ++j) {
+        const float4 c = cvp[j * TC];
+        const float g = wtu<P>(W, u, j) + c.x * lam[j];
+        x[j] = lam[j] - step * c.y * (g + c.z);
+        ac[j] = c.w;
+      }
+      float mu[KR];
+#pragma unroll
+      for (int q = 0; q < KR; ++q) mu[q] = mus[q * TC + cg];
+      project<P, PYR>(x, ac, mu, lam);
+    }
+    // the shared contacts two at a time (the second a pad when QS is
+    // odd), then the shared limit rows two at a time
+#pragma unroll 1
+    for (int q = 0; q < QS; q += 2) {
+      float g[6], x[6], ac[6];
+      wtu_shared<S, 6>(Wt, 3 * q, 3 * QS, u, g);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        const int j = 3 * q + k < 3 * QS ? 3 * q + k : 0;
+        const float4 c = cvs[j * TC];
+        const float lj = vt[j * T];
+        const float gk = g[k] + c.x * lj;
+        x[k] = lj - step * c.y * (gk + c.z);
+        ac[k] = c.w;
+      }
+      cone<PYR>(x[0], x[1], x[2], mus[(KR + q) * TC + cg], ac[0], ac[1], ac[2],
+                vt[3 * q * T], vt[(3 * q + 1) * T], vt[(3 * q + 2) * T]);
+      if (q + 1 < QS)
+        cone<PYR>(x[3], x[4], x[5], mus[(KR + q + 1) * TC + cg], ac[3], ac[4],
+                  ac[5], vt[(3 * q + 3) * T], vt[(3 * q + 4) * T],
+                  vt[(3 * q + 5) * T]);
+    }
+#pragma unroll 1
+    for (int p = 0; p < PS; p += 2) {
+      float g[2], x[2];
+      wtu_shared<S, 2>(Wt, 3 * QS + p, SC, u, g);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int j = 3 * QS + p + k < SC ? 3 * QS + p + k : 0;
+        const float4 c = cvs[j * TC];
+        const float lj = vt[j * T];
+        const float gk = g[k] + c.x * lj;
+        x[k] = fmaxf(lj - step * c.y * (gk + c.z), 0.f) * c.w;
+      }
+      vt[(3 * QS + p) * T] = x[0];
+      if (p + 1 < PS) vt[(3 * QS + p + 1) * T] = x[1];
     }
   }
-  for (int it = 0; it < a.iterations; ++it) {
-    __syncthreads();
-    wv_rows<T>(Ws, ldw, vbuf, ubuf, nv, n, tid);
-    for (int u = tid; u < U; u += T) {
-      if (u < K) {
-        const int c[3] = {u, K + u, 2 * K + u};
-        float g[3], x[3], ac[3];
-        wtu_cols<3>(Ws, ldw, ubuf, nv, c, g);
+  STAMP(6);
+
+  // ---- 6. outputs (the register kernel's phase 6) ------------------------
 #pragma unroll
-        for (int q = 0; q < 3; ++q) {
-          const float4 k = cv[c[q]];
-          const float lq = vbuf[c[q]];
-          x[q] = lq - step * k.y * (g[q] + k.x * lq + k.z);
-          ac[q] = k.w;
+  for (int s = 0; s < RPT; ++s) {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < CR; ++j) acc = fmaf(W[s][j], lam[j], acc);
+    u[s] = acc;
+  }
+  wv_shared<S, false>(Wt, vt, cvs, SC, 1.f, u);
+  rowsum_rs<S>(u, red(), tid);  // t = W lam; cv is free from here
+  if (cg == 0) {
+#pragma unroll
+    for (int s = 0; s < RPT; ++s)
+      if (rg + TR * s < nv) tbuf[rg + TR * s] = u[s];
+  }
+  if (rg == 0) {
+#pragma unroll
+    for (int j = 0; j < CR; ++j) cv[j * TC + cg].x = lam[j];
+  }
+  __syncthreads();
+  // lam: (slot, column group) pairs shared out as in phase 3
+#pragma unroll 2
+  for (int idx = tid; idx < (CR + SC) * TC; idx += T) {
+    const int j = idx / TC, g = idx % TC, c = col_of(j, g);
+    if (c >= 0)
+      a.lam[e * n + c] = j < CR ? cv[idx].x : vbuf[(j - CR) * T + g * TR];
+  }
+  // qfrc = L t = J^T lam: column group cg takes k = cg, cg + TC, ...
+  float z[RPT];
+#pragma unroll
+  for (int s = 0; s < RPT; ++s) {
+    const int i = rg + TR * s;
+    float acc = 0.f;
+#pragma unroll
+    for (int t = 0; t < MC; ++t) {
+      const int k = min(cg + TC * t, nv - 1);
+      acc += (k == cg + TC * t && k <= i && i < nv)
+                 ? Ls[k * ldl + min(i, nv - 1)] * tbuf[k]
+                 : 0.f;
+    }
+    z[s] = acc;
+  }
+  {
+    int b = 0;
+    rowsum<P>(z, red(), b, tid);
+  }
+  if (cg == 0) {
+#pragma unroll
+    for (int s = 0; s < RPT; ++s)
+      if (rg + TR * s < nv) a.qfrc[e * nv + rg + TR * s] = z[s];
+  }
+  // qacc = L^-T (y + t), right-looking from the last row up
+#pragma unroll
+  for (int s = 0; s < RPT; ++s) {
+    const int i = rg + TR * s;
+    z[s] = i < nv ? ybuf[i] + u[s] : 0.f;
+  }
+#pragma unroll
+  for (int ks = RPT - 1; ks >= 0; --ks) {
+#pragma unroll 1
+    for (int kr = TR - 1; kr >= 0; --kr) {
+      const int k = kr + TR * ks;
+      if (k < nv) {
+        z[ks] *= rg == kr ? inv_ld[k] : 1.f;
+        const float zk = __shfl_sync(FULL, z[ks], src0 + kr);
+#pragma unroll
+        for (int s = 0; s <= ks; ++s) {
+          const int i = rg + TR * s;
+          const float l = i < k ? Ls[i * ldl + k] : 0.f;
+          z[s] = fmaf(-l, zk, z[s]);
         }
-        cone<PYR>(x[0], x[1], x[2], mus[u], ac[0], ac[1], ac[2], vbuf[c[0]],
-                  vbuf[c[1]], vbuf[c[2]]);
-      } else {
-        const int c[1] = {2 * K + u};
-        float g[1];
-        wtu_cols<1>(Ws, ldw, ubuf, nv, c, g);
-        const float4 k = cv[c[0]];
-        const float lq = vbuf[c[0]];
-        const float x = lq - step * k.y * (g[0] + k.x * lq + k.z);
-        vbuf[c[0]] = fmaxf(x, 0.f) * k.w;
       }
     }
   }
-  __syncthreads();
-  STAMP(6);
-
-  // ---- 6. outputs ---------------------------------------------------------
-  wv_rows<T>(Ws, ldw, vbuf, ubuf, nv, n, tid);  // t = W lam
-  for (int c = tid; c < n; c += T) a.lam[e * n + c] = vbuf[c];
-  // qfrc = L t = J^T lam, a row a thread
-  for (int i = tid; i < nv; i += T) {
-    const float* li = Ls + i * ldl;
-    float acc = 0.f;
-    for (int k = 0; k <= i; ++k) acc = fmaf(li[k], ubuf[k], acc);
-    a.qfrc[e * nv + i] = acc;
-  }
-  // qacc = L^-T (y + t), right-looking from the last row up, on warp 0
-  if (tid < 32) {
-    for (int i = lane; i < nv; i += 32) ybuf[i] += ubuf[i];
-    __syncwarp();
-    for (int k = nv - 1; k >= 0; --k) {
-      const float zk = ybuf[k] * inv_ld[k];
-      const float* lk = Ls + k * ldl;
-      for (int i = lane; i < k; i += 32) ybuf[i] = fmaf(-lk[i], zk, ybuf[i]);
-      if (lane == 0) a.qacc[e * nv + k] = zk;
-      __syncwarp();
-    }
+  if (cg == 0) {
+#pragma unroll
+    for (int s = 0; s < RPT; ++s)
+      if (rg + TR * s < nv) a.qacc[e * nv + rg + TR * s] = z[s];
   }
   STAMP(7);
 }
@@ -1005,47 +1476,211 @@ static int launch(const Args& a, int B, bool parts, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The shared-memory plan's thread counts (ops/fused_solve.py:
-// SHARED_PLANS); its plan tuple is (0, T, 0, 0, 0).
-#define FUSED_SOLVE_SHARED(X) X(128) X(256)
-
-template <int T>
+template <class S>
 static const void* shared_kernel_of(bool parts, bool pyr) {
   if (parts)
-    return pyr ? (const void*)fused_solve_shared_kernel<T, true, true>
-               : (const void*)fused_solve_shared_kernel<T, true, false>;
-  return pyr ? (const void*)fused_solve_shared_kernel<T, false, true>
-             : (const void*)fused_solve_shared_kernel<T, false, false>;
+    return pyr ? (const void*)fused_solve_shared_kernel<S, true, true>
+               : (const void*)fused_solve_shared_kernel<S, true, false>;
+  return pyr ? (const void*)fused_solve_shared_kernel<S, false, true>
+             : (const void*)fused_solve_shared_kernel<S, false, false>;
 }
 
-template <int T>
+template <class S>
 static int launch_shared(const Args& a, int B, bool parts,
                          cudaStream_t stream) {
-  const size_t smem = sizeof(float) * Shared<T>::floats(a.nv, a.n, a.K);
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * S::floats(a.nv, a.K, a.L);
+  if (a.nv > S::TR * S::RPT || smem > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
   const bool pyr = a.pyramidal != 0;
-  const void* kern = shared_kernel_of<T>(parts, pyr);
+  const void* kern = shared_kernel_of<S>(parts, pyr);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   if (parts && pyr)
-    fused_solve_shared_kernel<T, true, true><<<B, T, smem, stream>>>(a);
+    fused_solve_shared_kernel<S, true, true><<<B, S::T, smem, stream>>>(a);
   else if (parts)
-    fused_solve_shared_kernel<T, true, false><<<B, T, smem, stream>>>(a);
+    fused_solve_shared_kernel<S, true, false><<<B, S::T, smem, stream>>>(a);
   else if (pyr)
-    fused_solve_shared_kernel<T, false, true><<<B, T, smem, stream>>>(a);
+    fused_solve_shared_kernel<S, false, true><<<B, S::T, smem, stream>>>(a);
   else
-    fused_solve_shared_kernel<T, false, false><<<B, T, smem, stream>>>(a);
+    fused_solve_shared_kernel<S, false, false><<<B, S::T, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
+
+// The source is built as FS_SHARDS translation units (nvcc -c, one
+// process each, all started together; ops/fused_solve.py:build_all links
+// them into one library): unit FS_SHARD instantiates the plans whose
+// index is FS_SHARD modulo FS_SHARDS, and unit 0 also holds the C entry
+// points, which ask each unit in turn. A plain build of the file (no
+// FS_SHARDS) is one unit with every plan.
+#ifndef FS_SHARDS
+#define FS_SHARDS 1
+#define FS_SHARD 0
+#endif
+#define FS_NOT_HERE (-1)
+#define FS_CAT_(a, b) a##b
+#define FS_CAT(a, b) FS_CAT_(a, b)
+
+// plan = {tr, tc, rpt, kc, lc, shared}: a register plan of
+// FUSED_SOLVE_PLANS, or with shared a plan (4, 32, RPT, KR, LR) of
+// FUSED_SOLVE_SHARED
+template <int I, class P>
+static int launch_in_unit(const int* plan, const Args& a, int B, bool parts,
+                          cudaStream_t st) {
+  if constexpr (I % FS_SHARDS == FS_SHARD) {
+    if (!plan[5] && plan_is<P>(plan[0], plan[1], plan[2], plan[3], plan[4]))
+      return launch<P>(a, B, parts, st);
+  }
+  return FS_NOT_HERE;
+}
+
+template <int I, class S>
+static int launch_shared_in_unit(const int* plan, const Args& a, int B,
+                                 bool parts, cudaStream_t st) {
+  if constexpr (I % FS_SHARDS == FS_SHARD) {
+    if (plan[5] &&
+        plan_is<typename S::P>(plan[0], plan[1], plan[2], plan[3], plan[4]))
+      return launch_shared<S>(a, B, parts, st);
+  }
+  return FS_NOT_HERE;
+}
+
+// What the compiler and the occupancy calculator say of one plan's
+// kernel: out = {registers per thread, local (spill) bytes per thread,
+// dynamic shared bytes at (nv, n, K), blocks per SM}.
+static int kernel_report(const void* kern, int threads, int smem, int* out) {
+  cudaFuncAttributes at;
+  cudaError_t err = cudaFuncGetAttributes(&at, kern);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, threads,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = at.numRegs;
+  out[1] = (int)at.localSizeBytes;
+  out[2] = smem;
+  out[3] = blocks;
+  return 0;
+}
+
+template <int I, class P>
+static int info_in_unit(const int* plan, bool parts, int nv, int n, int* out) {
+  if constexpr (I % FS_SHARDS == FS_SHARD) {
+    if (!plan[5] && plan_is<P>(plan[0], plan[1], plan[2], plan[3], plan[4]))
+      return kernel_report(kernel_of<P>(parts, false), P::T,
+                           (int)sizeof(float) * Smem<P>::floats(nv, n), out);
+  }
+  return FS_NOT_HERE;
+}
+
+template <int I, class S>
+static int info_shared_in_unit(const int* plan, bool parts, int nv, int n,
+                               int K, int* out) {
+  if constexpr (I % FS_SHARDS == FS_SHARD) {
+    if (plan[5] &&
+        plan_is<typename S::P>(plan[0], plan[1], plan[2], plan[3], plan[4]))
+      return kernel_report(shared_kernel_of<S>(parts, false), S::T,
+                           (int)sizeof(float) * S::floats(nv, K, n - 3 * K),
+                           out);
+  }
+  return FS_NOT_HERE;
+}
+
+// This unit's plans: FS_NOT_HERE when none of them is plan.
+extern "C" int FS_CAT(fused_solve_unit_launch, FS_SHARD)(
+    const int* plan, const Args* a, int B, int parts, void* stream) {
+  int r;
+  cudaStream_t st = (cudaStream_t)stream;
+#define FS_DISPATCH(i_, tr_, tc_, rpt_, kc_, lc_)                           \
+  if ((r = launch_in_unit<i_, Plan<tr_, tc_, rpt_, kc_, lc_>>(plan, *a, B, \
+                                                             parts, st)) != \
+      FS_NOT_HERE)                                                         \
+    return r;
+  FUSED_SOLVE_PLANS(FS_DISPATCH)
+#undef FS_DISPATCH
+#define FS_DISPATCH_SHARED(i_, tc_, rpt_, kr_, lr_, mb_)                  \
+  if ((r = launch_shared_in_unit<i_, Split<tc_, rpt_, kr_, lr_, mb_>>(    \
+           plan, *a, B, parts, st)) != FS_NOT_HERE)                       \
+    return r;
+  FUSED_SOLVE_SHARED(FS_DISPATCH_SHARED)
+#undef FS_DISPATCH_SHARED
+  return FS_NOT_HERE;
+}
+
+extern "C" int FS_CAT(fused_solve_unit_info, FS_SHARD)(
+    const int* plan, int parts, int nv, int n, int K, int* out) {
+  int r;
+#define FS_INFO(i_, tr_, tc_, rpt_, kc_, lc_)                              \
+  if ((r = info_in_unit<i_, Plan<tr_, tc_, rpt_, kc_, lc_>>(              \
+           plan, parts != 0, nv, n, out)) != FS_NOT_HERE)                 \
+    return r;
+  FUSED_SOLVE_PLANS(FS_INFO)
+#undef FS_INFO
+#define FS_INFO_SHARED(i_, tc_, rpt_, kr_, lr_, mb_)                      \
+  if ((r = info_shared_in_unit<i_, Split<tc_, rpt_, kr_, lr_, mb_>>(      \
+           plan, parts != 0, nv, n, K, out)) != FS_NOT_HERE)              \
+    return r;
+  FUSED_SOLVE_SHARED(FS_INFO_SHARED)
+#undef FS_INFO_SHARED
+  return FS_NOT_HERE;
+}
+
+#if FS_SHARD == 0
+#define FS_UNIT_DECL(i)                                                    \
+  extern "C" int fused_solve_unit_launch##i(const int*, const Args*, int,  \
+                                            int, void*);                   \
+  extern "C" int fused_solve_unit_info##i(const int*, int, int, int, int,  \
+                                          int*);
+#if FS_SHARDS > 1
+FS_UNIT_DECL(1)
+#endif
+#if FS_SHARDS > 2
+FS_UNIT_DECL(2)
+#endif
+#if FS_SHARDS > 3
+FS_UNIT_DECL(3)
+#endif
+static_assert(FS_SHARDS >= 1 && FS_SHARDS <= 4, "1 to 4 units");
+typedef int (*UnitLaunch)(const int*, const Args*, int, int, void*);
+typedef int (*UnitInfo)(const int*, int, int, int, int, int*);
+static const UnitLaunch unit_launch[FS_SHARDS] = {
+    fused_solve_unit_launch0,
+#if FS_SHARDS > 1
+    fused_solve_unit_launch1,
+#endif
+#if FS_SHARDS > 2
+    fused_solve_unit_launch2,
+#endif
+#if FS_SHARDS > 3
+    fused_solve_unit_launch3,
+#endif
+};
+static const UnitInfo unit_info[FS_SHARDS] = {
+    fused_solve_unit_info0,
+#if FS_SHARDS > 1
+    fused_solve_unit_info1,
+#endif
+#if FS_SHARDS > 2
+    fused_solve_unit_info2,
+#endif
+#if FS_SHARDS > 3
+    fused_solve_unit_info3,
+#endif
+};
 
 // One launch of B envs. JT == NULL selects the parts path (cd_lin ...
 // ld_idx); otherwise the parts pointers are ignored. clocks is read only
 // by the -DFUSED_SOLVE_CLOCKS build. (tr, tc, rpt, kc, lc) is one of
-// FUSED_SOLVE_PLANS, within the register plans' range, or (0, T, 0, 0, 0)
-// with T one of FUSED_SOLVE_SHARED, within one block's shared memory.
+// FUSED_SOLVE_PLANS, within the register plans' range, or with shared
+// (4, 32, RPT, KR, LR) of one of FUSED_SOLVE_SHARED, within one block's
+// shared memory.
 extern "C" int fused_solve_launch(
     const void* M, const void* JT, const void* cd_lin, const void* cd_ang,
     const void* frame, const void* rpos, const void* w, const void* sign_l,
@@ -1053,10 +1688,10 @@ extern "C" int fused_solve_launch(
     const void* active, const void* mu, const void* lam0, void* qacc,
     void* qfrc, void* lam, void* clocks, int B, int nv, int n, int K, int L,
     int iterations, int pyramidal, int tr, int tc, int rpt, int kc, int lc,
-    void* stream) {
+    int shared, void* stream) {
   if (nv < 1 || n != 3 * K + L || K < 0 || L < 0 || B < 0 || iterations < 0)
     return (int)cudaErrorInvalidValue;
-  if (tr != 0 && (nv > REG_NV_MAX || n > REG_N_MAX || K > REG_K_MAX))
+  if (!shared && (nv > REG_NV_MAX || n > REG_N_MAX || K > REG_K_MAX))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   Args a;
@@ -1085,60 +1720,22 @@ extern "C" int fused_solve_launch(
   a.L = L;
   a.iterations = iterations;
   a.pyramidal = pyramidal;
-  const bool parts = JT == nullptr;
-  cudaStream_t st = (cudaStream_t)stream;
-#define FS_DISPATCH(tr_, tc_, rpt_, kc_, lc_)                    \
-  if (plan_is<Plan<tr_, tc_, rpt_, kc_, lc_>>(tr, tc, rpt, kc, lc)) \
-    return launch<Plan<tr_, tc_, rpt_, kc_, lc_>>(a, B, parts, st);
-  FUSED_SOLVE_PLANS(FS_DISPATCH)
-#undef FS_DISPATCH
-#define FS_DISPATCH_SHARED(t_)                                  \
-  if (tr == 0 && tc == t_ && rpt == 0 && kc == 0 && lc == 0) \
-    return launch_shared<t_>(a, B, parts, st);
-  FUSED_SOLVE_SHARED(FS_DISPATCH_SHARED)
-#undef FS_DISPATCH_SHARED
-  return (int)cudaErrorInvalidValue;
-}
-
-// What the compiler and the occupancy calculator say of one plan's
-// kernel: out = {registers per thread, local (spill) bytes per thread,
-// dynamic shared bytes at (nv, n, K), blocks per SM}.
-static int kernel_report(const void* kern, int threads, int smem, int* out) {
-  cudaFuncAttributes at;
-  cudaError_t err = cudaFuncGetAttributes(&at, kern);
-  if (err != cudaSuccess) return (int)err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
+  const int plan[6] = {tr, tc, rpt, kc, lc, shared};
+  for (int u = 0; u < FS_SHARDS; ++u) {
+    const int r = unit_launch[u](plan, &a, B, JT == nullptr, stream);
+    if (r != FS_NOT_HERE) return r;
   }
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, threads,
-                                                      smem);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = at.numRegs;
-  out[1] = (int)at.localSizeBytes;
-  out[2] = smem;
-  out[3] = blocks;
-  return 0;
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int fused_solve_info(int tr, int tc, int rpt, int kc, int lc,
-                                int parts, int nv, int n, int K, int* out) {
-#define FS_INFO(tr_, tc_, rpt_, kc_, lc_)                                  \
-  if (plan_is<Plan<tr_, tc_, rpt_, kc_, lc_>>(tr, tc, rpt, kc, lc)) {      \
-    using P = Plan<tr_, tc_, rpt_, kc_, lc_>;                              \
-    return kernel_report(kernel_of<P>(parts != 0, false), P::T,            \
-                         (int)sizeof(float) * Smem<P>::floats(nv, n), out); \
+                                int shared, int parts, int nv, int n, int K,
+                                int* out) {
+  const int plan[6] = {tr, tc, rpt, kc, lc, shared};
+  for (int u = 0; u < FS_SHARDS; ++u) {
+    const int r = unit_info[u](plan, parts, nv, n, K, out);
+    if (r != FS_NOT_HERE) return r;
   }
-  FUSED_SOLVE_PLANS(FS_INFO)
-#undef FS_INFO
-#define FS_INFO_SHARED(t_)                                                 \
-  if (tr == 0 && tc == t_ && rpt == 0 && kc == 0 && lc == 0)               \
-    return kernel_report(shared_kernel_of<t_>(parts != 0, false), t_,      \
-                         (int)sizeof(float) * Shared<t_>::floats(nv, n, K), \
-                         out);
-  FUSED_SOLVE_SHARED(FS_INFO_SHARED)
-#undef FS_INFO_SHARED
   return (int)cudaErrorInvalidValue;
 }
+#endif  // FS_SHARD == 0

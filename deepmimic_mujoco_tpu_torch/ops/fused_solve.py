@@ -34,8 +34,10 @@ ctypes; ``build_all`` builds the phase-clock variant beside it.
 The register plans hold up to 112 constraint rows (humanoid3d to 28
 contact slots, G1 to 25). Beyond them, up to what one block's shared
 memory holds (``check_fits`` names the largest ``max_contacts``), the
-kernel's shared-memory plan runs the same pipeline with W in shared
-memory, one block of 128 or 256 threads per env (``launch_plan``).
+kernel's shared-memory plan runs the same pipeline on the same kind of
+thread grid, 128 threads an env, with each thread's W split between
+registers (its first contacts) and shared memory (the rest), as many
+columns a thread as K and L ask for (``launch_plan``, ``plan_cells``).
 
 What bounds it on the H100: at humanoid3d size (nv 34, n 76) an env
 moves ~17 KB (explicit J^T; ~10 KB from the parts) and does ~0.78
@@ -72,7 +74,10 @@ SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "fused_solve.cu")
 BUILD_DIR = os.path.join(_REPO, "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# translation units per library (csrc/fused_solve.cu:FS_SHARDS): each
+# builds a share of the plans, all in parallel, then one link
+UNITS = 4
 # library name -> extra nvcc flags: the kernel, and its phase-clock twin
 VARIANTS = {"fused_solve": [],
             "fused_solve_clocks": ["-DFUSED_SOLVE_CLOCKS"]}
@@ -95,11 +100,12 @@ def _lib_path(name: str) -> str:
 
 def build_all(force: bool = False, names=tuple(VARIANTS)) -> dict:
     """Compile csrc/fused_solve.cu into each named shared library (when
-    missing, older than the source, or ``force``), one nvcc process per
-    library, all started together. Returns {name: path}; raises with
-    nvcc's output when a build fails. ptxas's resource report
-    (registers, shared memory, spills per kernel) is kept in
-    ``build_all.ptxas[name]``."""
+    missing, older than the source, or ``force``): ``UNITS`` nvcc
+    processes per library, each building its share of the plans into an
+    object file, all started together, then one link per library.
+    Returns {name: path}; raises with nvcc's output when a build fails.
+    ptxas's resource report (registers, shared memory, spills per
+    kernel) is kept in ``build_all.ptxas[name]``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
@@ -107,20 +113,38 @@ def build_all(force: bool = False, names=tuple(VARIANTS)) -> dict:
         if (not force and os.path.exists(out)
                 and os.path.getmtime(out) >= os.path.getmtime(SOURCE)):
             continue
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, *VARIANTS[name], "-o", tmp, SOURCE]
-        procs[name] = (cmd, tmp, out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    failed = []
-    for name, (cmd, tmp, out, proc) in procs.items():
+        for u in range(UNITS):
+            obj = f"{out}.{os.getpid()}.{u}.o"
+            cmd = [_nvcc(), *NVCC_FLAGS, *VARIANTS[name],
+                   f"-DFS_SHARDS={UNITS}", f"-DFS_SHARD={u}", "-c", "-o",
+                   obj, SOURCE]
+            procs[name, u] = (cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    failed, logs, objs = [], {}, {}
+    for (name, u), (cmd, obj, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): "
                           f"{' '.join(cmd)}\n{log}")
-            continue
-        build_all.ptxas[name] = log.strip()
-        os.replace(tmp, out)
+        logs.setdefault(name, []).append(log.strip())
+        objs.setdefault(name, []).append(obj)
+    for name in objs:
+        if not failed:
+            out = _lib_path(name)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), "-shared", "-o", tmp, *objs[name]]
+            link = subprocess.run(cmd, capture_output=True, text=True)
+            if link.returncode != 0:
+                failed.append(f"nvcc link failed ({link.returncode}): "
+                              f"{' '.join(cmd)}\n{link.stdout}"
+                              f"{link.stderr}")
+            else:
+                build_all.ptxas[name] = "\n".join(logs[name])
+                os.replace(tmp, out)
+        for obj in objs[name]:
+            if os.path.exists(obj):
+                os.remove(obj)
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: _lib_path(name) for name in names}
@@ -135,11 +159,11 @@ def _load(clocks: bool = False):
         if name not in _libs:
             lib = ctypes.CDLL(build_all(names=(name,))[name])
             fn = lib.fused_solve_launch
-            fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 12
+            fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 13
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             info = lib.fused_solve_info
-            info.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
+            info.argtypes = [ctypes.c_int] * 10 + [ctypes.c_void_p]
             info.restype = ctypes.c_int
             _libs[name] = lib
     return _libs[name]
@@ -150,57 +174,81 @@ def _load(clocks: bool = False):
 # (TR, TC, RPT, KC, LC) of every register plan the kernel is compiled
 # for, in the order they are tried: csrc/fused_solve.cu:FUSED_SOLVE_PLANS.
 PLANS = ((4, 8, 9, 2, 4), (4, 16, 11, 2, 3), (4, 32, 12, 2, 2))
-# the shared-memory plan at its two block sizes, (0, T, 0, 0, 0):
-# csrc/fused_solve.cu:FUSED_SOLVE_SHARED
-SHARED_PLANS = ((0, 128, 0, 0, 0), (0, 256, 0, 0, 0))
+# the shared-memory plan's instances (TR, TC, RPT, KR, LR): the register
+# grid, the rows per thread, and the contacts and limit rows per column
+# group whose W stays in registers (the rest lies in shared memory), in
+# the order they are tried: csrc/fused_solve.cu:FUSED_SOLVE_SHARED
+SHARED_PLANS = ((4, 32, 9, 2, 1), (4, 32, 11, 1, 2), (4, 32, 11, 2, 0),
+                (4, 32, 16, 1, 0))
 W_REGS_BUDGET = 112        # W values one thread holds in registers
 SMEM_PER_BLOCK = 232_448   # H100: most shared memory one block can use
 THREADS_PER_BLOCK = 1024
 
 
 class LaunchPlan(NamedTuple):
-    """How the kernel lays one env over its threads. In a register plan
-    thread tid of an env is (rg, cg) = (tid % tr, tid // tr); it holds
-    W[rg + tr s, col] for s < rpt and its cols_per_thread columns. In the
-    shared-memory plan (tr 0) W lies in shared memory and thread tid owns
-    the columns of the units tid, tid + tc, ... (``plan_cells``)."""
-    tr: int                 # row groups; 0: the shared-memory plan
+    """How the kernel lays one env over its threads: thread tid of an env
+    is (rg, cg) = (tid % tr, tid // tr); it holds W[rg + tr s, col] for
+    s < rpt and its columns (``plan_cells``). In a register plan all of
+    them lie in registers; in the shared-memory plan (``shared``) its
+    first kc contacts and lc limit rows do and the rest lie in shared
+    memory."""
+    tr: int                 # row groups
     tc: int                 # column groups
     rpt: int                # rows per thread
-    kc: int                 # contacts per column group
-    lc: int                 # limit rows per column group
+    kc: int                 # contacts per column group (in registers)
+    lc: int                 # limit rows per column group (in registers)
+    shared: bool            # W split between registers and shared memory
     threads_per_env: int
     envs_per_block: int
     threads_per_block: int
-    cols_per_thread: int
-    w_regs: int             # W values per thread
+    cols_per_thread: int    # all of a thread's columns, pads included
+    w_regs: int             # W values per thread in registers
     smem_bytes: int         # dynamic shared memory per block
 
     @property
-    def shared(self) -> bool:
-        """The shared-memory plan (W in shared memory)."""
-        return self.tr == 0
-
-    @property
     def label(self) -> str:
-        return (f"shared memory, {self.tc} threads" if self.shared
+        return (f"shared {self.tr} x {self.tc}, {self.rpt} x "
+                f"{3 * self.kc + self.lc} in registers" if self.shared
                 else f"{self.tr} x {self.tc}")
 
 
-def shared_smem_bytes(nv: int, n: int, K: int, threads: int) -> int:
+def _units(n_units: int, tc: int, base: int) -> int:
+    """Slots of one kind a column group holds past its ``base`` register
+    slots: ceil(n_units / tc) - base, at least 0."""
+    return max(-(-n_units // tc) - base, 0)
+
+
+def _shared_cols(K: int, L: int, plan) -> int:
+    """Columns a thread of the shared-memory plan ``plan`` holds in shared
+    memory: 3 per contact slot and 1 per limit slot past its register
+    slots."""
+    tc, kr, lr = plan[1], plan[3], plan[4]
+    return 3 * _units(K, tc, kr) + _units(L, tc, lr)
+
+
+def shared_smem_bytes(nv: int, n: int, K: int, plan) -> int:
     """Dynamic shared memory of one env in the shared-memory plan
-    (csrc/fused_solve.cu:Shared::floats): the column constants, W, L,
-    three nv-vectors, the vector W v multiplies, mu and the warps'
-    partials."""
-    return 4 * (4 * n + nv * (n | 1) + nv * (nv | 1) + 3 * nv + n + K
-                + 2 * (threads // 32))
+    ``plan`` (a ``SHARED_PLANS`` entry; csrc/fused_solve.cu:
+    Split::floats): the column constants of every slot, W's shared part
+    and each thread's slots of the vector it multiplies, mu of every
+    contact slot, then L, three nv-vectors and two buffers of the warps'
+    partials (16 rows a row group; the Cholesky's column buffers and
+    trash line use them first)."""
+    tr, tc, rpt, kr, lr = plan[:5]
+    t = tr * tc
+    qs = _units(K, tc, kr)
+    sc = _shared_cols(K, n - 3 * K, plan)
+    return 4 * (4 * tc * (3 * kr + lr + sc) + sc * (rpt * t + t)
+                + (kr + qs) * tc + nv * (nv | 1) + 3 * nv
+                + 2 * (t // 32) * tr * 16)
 
 
 @functools.lru_cache(maxsize=None)
 def launch_plan(nv: int, n: int, K: int) -> LaunchPlan:
     """The first of ``PLANS`` that holds (nv, K, L = n - 3K) within the
-    register plans' range, else the shared-memory plan if one env fits
-    one block's shared memory; raises a ValueError otherwise.
+    register plans' range, else an instance of ``SHARED_PLANS`` (below)
+    if one env fits one block's shared memory; raises a ValueError
+    otherwise.
 
     One env per block: an env of one warp synchronises with __syncwarp,
     and a block of one env needs no named barriers; the registers (220
@@ -208,9 +256,13 @@ def launch_plan(nv: int, n: int, K: int) -> LaunchPlan:
     block count limit residency. The register plans are the first that
     fit humanoid3d (one warp) and G1 (two warps), then one for the
     largest sizes they take. The shared-memory plan takes 128 threads an
-    env up to 128 units (a contact, or a limit row), else 256. The
-    shared-memory sums are csrc/fused_solve.cu:Smem::floats and
-    Shared::floats."""
+    env whatever K; its instances differ in rows per thread (humanoid3d,
+    G1, up to 64 dofs) and in which of a thread's contacts and limit
+    rows stay in registers: of those with the fewest rows that hold nv,
+    the one that leaves the fewest columns in shared memory (G1 up to 32
+    contact slots holds all of W in registers with one contact and two
+    limit rows a thread; past that, two contacts). The shared-memory
+    sums are csrc/fused_solve.cu:Smem::floats and Split::floats."""
     L = n - 3 * K
     if nv < 1 or K < 0 or L < 0:
         raise ValueError(f"fused_solve: no system with nv={nv}, n={n}, "
@@ -219,17 +271,28 @@ def launch_plan(nv: int, n: int, K: int) -> LaunchPlan:
         for tr, tc, rpt, kc, lc in PLANS:
             if nv <= tr * rpt and K <= tc * kc and L <= tc * lc:
                 return _register_plan(nv, n, tr, tc, rpt, kc, lc)
-    shared = SHARED_PLANS[0 if K + L <= 128 else 1]
-    t = shared[1]
-    smem = shared_smem_bytes(nv, n, K, t)
-    if smem > SMEM_PER_BLOCK:
+    rows = [p[0] * p[2] for p in SHARED_PLANS if nv <= p[0] * p[2]]
+    if not rows:
         raise ValueError(
-            f"fused_solve kernel: nv={nv}, n={n}, K={K} needs {smem} B of "
-            f"shared memory per env, more than one block's "
+            f"fused_solve kernel: nv={nv} dofs, more than the "
+            f"{max(p[0] * p[2] for p in SHARED_PLANS)} rows of any plan")
+    # the instances of the fewest rows that hold nv, the fewest shared
+    # columns first (the first of a tie)
+    fits = sorted((p for p in SHARED_PLANS if p[0] * p[2] == min(rows)),
+                  key=lambda p: _shared_cols(K, L, p))
+    smem = [shared_smem_bytes(nv, n, K, p) for p in fits]
+    if min(smem) > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"fused_solve kernel: nv={nv}, n={n}, K={K} needs {min(smem)} "
+            f"B of shared memory per env, more than one block's "
             f"{SMEM_PER_BLOCK} B")
-    units = -(-(K + L) // t)                # units of thread 0
-    cols = sum(3 if u * t < K else 1 for u in range(units))
-    return LaunchPlan(*shared, t, 1, t, cols, 0, smem)
+    i = next(i for i, b in enumerate(smem) if b <= SMEM_PER_BLOCK)
+    tr, tc, rpt, kr, lr = fits[i]
+    smem = smem[i]
+    t = tr * tc
+    cr = 3 * kr + lr
+    return LaunchPlan(tr, tc, rpt, kr, lr, True, t, 1, t,
+                      cr + _shared_cols(K, L, fits[i]), rpt * cr, smem)
 
 
 def _register_plan(nv, n, tr, tc, rpt, kc, lc) -> LaunchPlan:
@@ -243,7 +306,8 @@ def _register_plan(nv, n, tr, tc, rpt, kc, lc) -> LaunchPlan:
                 + 2 * max(tr * rpt, tc * mc)            # Cholesky columns
                 + (2 * nw * tr * rpt if nw > 1 else 0)   # warp partials
                 + t + tr * rpt)             # non-owners' Cholesky stores
-    return LaunchPlan(tr, tc, rpt, kc, lc, t, 1, t, cpt, rpt * cpt, smem)
+    return LaunchPlan(tr, tc, rpt, kc, lc, False, t, 1, t, cpt, rpt * cpt,
+                      smem)
 
 
 def max_contacts_on_card(nv: int, L: int):
@@ -285,31 +349,28 @@ def _holds(nv, n, K):
 
 
 def plan_cells(plan: LaunchPlan, nv: int, K: int, L: int):
-    """(tid, row, col) for every entry of W a thread of the env holds
-    (csrc/fused_solve.cu:col_of); pad slots are left out. In the
-    shared-memory plan, the entries of the columns a thread owns (its
-    units' columns, whose W^T u and projection it computes)."""
-    if plan.shared:
-        for tid in range(plan.threads_per_env):
-            for u in range(tid, K + L, plan.tc):
-                cols = (u, K + u, 2 * K + u) if u < K else (2 * K + u,)
-                yield from ((tid, row, c) for row in range(nv)
-                            for c in cols)
-        return
+    """(tid, row, col, in_registers) for every entry of W a thread of the
+    env holds (csrc/fused_solve.cu: col_of in each kernel); pad slots are
+    left out. A register plan deals contact c = cg + tc q and limit row
+    l = cg + tc p; the shared-memory plan deals limit rows from the last
+    column group, l = tc - 1 - cg + tc p, and keeps its first kc contacts
+    and lc limit rows in registers."""
+    n_q = -(-K // plan.tc) if plan.shared else plan.kc
+    n_p = -(-L // plan.tc) if plan.shared else plan.lc
     for tid in range(plan.threads_per_env):
         rg, cg = tid % plan.tr, tid // plan.tr
         cols = []
-        for j in range(plan.cols_per_thread):
-            if j < 3 * plan.kc:
-                c = cg + plan.tc * (j // 3)
-                cols.append((j % 3) * K + c if c < K else -1)
-            else:
-                lim = cg + plan.tc * (j - 3 * plan.kc)
-                cols.append(3 * K + lim if lim < L else -1)
+        for q in range(n_q):
+            c = cg + plan.tc * q
+            cols += [(r * K + c, q < plan.kc) for r in range(3) if c < K]
+        for p in range(n_p):
+            lim = (plan.tc - 1 - cg if plan.shared else cg) + plan.tc * p
+            if lim < L:
+                cols.append((3 * K + lim, p < plan.lc))
         for s in range(plan.rpt):
             row = rg + plan.tr * s
             if row < nv:
-                yield from ((tid, row, c) for c in cols if c >= 0)
+                yield from ((tid, row, c, reg) for c, reg in cols)
 
 
 def kernel_info(nv: int, n: int, K: int, parts: bool = True) -> dict:
@@ -318,7 +379,7 @@ def kernel_info(nv: int, n: int, K: int, parts: bool = True) -> dict:
     cudaOccupancyMaxActiveBlocksPerMultiprocessor reports (card only)."""
     plan = launch_plan(nv, n, K)
     out = (ctypes.c_int * 4)()
-    err = _load().fused_solve_info(*plan[:5], int(parts), nv, n, K, out)
+    err = _load().fused_solve_info(*plan[:6], int(parts), nv, n, K, out)
     if err != 0:
         raise RuntimeError(f"fused_solve_info failed: cudaError {err}")
     return {"plan": plan, "regs": out[0], "spill_bytes": out[1],
@@ -426,7 +487,7 @@ def _launch(lib, plan, B, nv, K, L, iterations, pyramidal, M, JT, parts,
     err = lib.fused_solve_launch(
         ptr(M), ptr(JT), *parts_ptrs, *[ptr(x) for x in vectors],
         ptr(qacc), ptr(qfrc), ptr(lam), ptr(clocks), B, nv, n, K, L,
-        int(iterations), int(bool(pyramidal)), *plan[:5], stream)
+        int(iterations), int(bool(pyramidal)), *plan[:6], stream)
     if err != 0:
         raise RuntimeError(f"fused_solve kernel launch failed: "
                            f"cudaError {err}")

@@ -107,7 +107,7 @@ def test_parts_kernel_matches_plain_on_card(cuda_device, dims, B):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K", [48, 64, 128])
+@pytest.mark.parametrize("K", [26, 48, 64, 128])
 def test_shared_plan_matches_plain_on_card(cuda_device, K):
     """The shared-memory plan (G1 with more contact slots than a register
     plan holds): both entries, both cones, against the plain version,
@@ -256,8 +256,8 @@ def test_engine_on_card_refuses_what_no_plan_holds(cuda_device):
     env = DPEnv(motion="walk", robot="unitree_g1", max_contacts=128,
                 device=cuda_device)
     assert env.engine.solve_plan.shared
-    with pytest.raises(ValueError, match="max_contacts=374"):
-        DPEnv(motion="walk", robot="unitree_g1", max_contacts=375,
+    with pytest.raises(ValueError, match="max_contacts=384"):
+        DPEnv(motion="walk", robot="unitree_g1", max_contacts=385,
               device=cuda_device)
 
 
@@ -589,7 +589,7 @@ def test_check_fits_names_the_limit():
     assert fs.check_fits(34, 16, 28)[:2] == (4, 8)
     assert fs.check_fits(43, 24, 37)[:2] == (4, 16)
     assert not fs.check_fits(43, 25, 37).shared
-    for nv, L, k_max in ((43, 37, 374), (34, 28, 471)):
+    for nv, L, k_max in ((43, 37, 384), (34, 28, 480)):
         for K in (26, 29, 64, 128, k_max):
             assert fs.check_fits(nv, K, L).smem_bytes <= fs.SMEM_PER_BLOCK
         with pytest.raises(ValueError,

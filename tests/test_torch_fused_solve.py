@@ -162,12 +162,13 @@ def test_launch_plan_covers_w(nv, K, L):
     values a thread holds in registers."""
     n = 3 * K + L
     plan = fs.launch_plan(nv, n, K)
-    cells = [(row, col) for _, row, col in fs.plan_cells(plan, nv, K, L)]
+    cells = [(row, col) for _, row, col, _ in fs.plan_cells(plan, nv, K, L)]
     assert len(cells) == nv * n
     assert set(cells) == {(i, c) for i in range(nv) for c in range(n)}
     owners = {}
-    for tid, row, col in fs.plan_cells(plan, nv, K, L):
+    for tid, row, col, in_regs in fs.plan_cells(plan, nv, K, L):
         assert 0 <= tid < plan.threads_per_env
+        assert in_regs
         owners.setdefault(tid, set()).add(col)
     # a contact's normal and both tangent rows lie in one thread
     for cols in owners.values():
@@ -186,30 +187,43 @@ def test_launch_plan_covers_w(nv, K, L):
 
 @pytest.mark.parametrize("nv,K,L", [(43, 26, 37), (34, 29, 28),
                                     (43, 128, 37), (34, 128, 28),
-                                    (60, 10, 50)],
+                                    (60, 10, 50), (43, 37, 37),
+                                    (43, 374, 37), (34, 121, 28)],
                          ids=["43x115", "34x115", "43x421", "34x412",
-                              "60x80"])
+                              "60x80", "43x148", "43x1159", "34x391"])
 def test_shared_plan_covers_w(nv, K, L):
-    """In the shared-memory plan each column of W (all nv rows) belongs
-    to exactly one thread, a contact's triple to one thread, and the
-    env fits one block."""
+    """In the shared-memory plan every entry of W has exactly one owner,
+    in its registers or in its shared-memory slots; a contact's triple
+    lies in one thread and in one of the two; a thread's register part
+    is its rpt x (3 kc + lc) tile; units (contacts and limit rows) per
+    column group differ by at most one; and the env fits one block."""
     n = 3 * K + L
     plan = fs.launch_plan(nv, n, K)
     assert plan.shared and plan[:5] in fs.SHARED_PLANS
-    cells = [(row, col) for _, row, col in fs.plan_cells(plan, nv, K, L)]
+    cells = list(fs.plan_cells(plan, nv, K, L))
     assert len(cells) == nv * n
-    assert set(cells) == {(i, c) for i in range(nv) for c in range(n)}
-    owners = {}
-    for tid, _, col in fs.plan_cells(plan, nv, K, L):
+    assert {(row, col) for _, row, col, _ in cells} == {
+        (i, c) for i in range(nv) for c in range(n)}
+    owners, regs, units = {}, {}, {}
+    for tid, row, col, in_regs in cells:
         assert 0 <= tid < plan.threads_per_env
-        owners.setdefault(tid, set()).add(col)
+        owners.setdefault(tid, {})[col] = in_regs
+        regs[tid] = regs.get(tid, 0) + in_regs
+        units.setdefault(tid // plan.tr, set()).add(
+            col % K if col < 3 * K else col)
     for cols in owners.values():
-        for c in cols:
+        for c, in_regs in cols.items():
             if c < K:
-                assert {c + K, c + 2 * K} <= cols
-    assert max(len(c) for c in owners.values()) == plan.cols_per_thread
-    assert plan.threads_per_env == (128 if K + L <= 128 else 256)
-    assert plan.smem_bytes == fs.shared_smem_bytes(nv, n, K, plan.tc)
+                assert cols.get(c + K) is in_regs
+                assert cols.get(c + 2 * K) is in_regs
+    assert max(regs.values()) <= plan.w_regs == plan.rpt * (3 * plan.kc
+                                                            + plan.lc)
+    assert max(len(c) for c in owners.values()) <= plan.cols_per_thread
+    count = [len(units.get(cg, ())) for cg in range(plan.tc)]
+    assert max(count) - min(count) <= 1
+    assert nv <= plan.tr * plan.rpt
+    assert plan.threads_per_env == plan.tr * plan.tc == 128
+    assert plan.smem_bytes == fs.shared_smem_bytes(nv, n, K, plan)
     assert plan.smem_bytes <= fs.SMEM_PER_BLOCK
 
 
@@ -217,7 +231,7 @@ def test_launch_plan_picks_shared_beyond_registers():
     """The main paths keep their register plans; from G1 K 26 and
     humanoid3d K 29 (past 112 constraint rows) up to K 128 the
     shared-memory plan holds the env, within one block's shared memory
-    (G1 at 128 slots: 89,320 B, worked by hand)."""
+    (G1 at 128 slots: 66,792 B, worked by hand)."""
     assert fs.launch_plan(34, 76, 16)[:5] == (4, 8, 9, 2, 4)
     assert fs.launch_plan(43, 109, 24)[:5] == (4, 16, 11, 2, 3)
     for (nv, L), k_reg in (((43, 37), 25), ((34, 28), 28)):
@@ -226,22 +240,51 @@ def test_launch_plan_picks_shared_beyond_registers():
             plan = fs.launch_plan(nv, 3 * K + L, K)
             assert plan.shared, (nv, K)
             assert plan.smem_bytes <= fs.SMEM_PER_BLOCK
-    # 4 (4 n + nv (n|1) + nv (nv|1) + 3 nv + n + K + 2 * 8), n = 421
+    # (4, 32, 11, 2, 0): 2 shared contact and 2 shared limit slots, 8
+    # shared columns. 4 (column constants 4 * 32 * (6 + 8), W 8 * 11 * 128,
+    # the vector 8 * 128, mu (2 + 2) * 32, L 43 * 43, 3 * 43, partials
+    # 2 * 4 * 4 * 16)
     n = 421
+    assert fs.launch_plan(43, n, 128)[:5] == (4, 32, 11, 2, 0)
     assert fs.launch_plan(43, n, 128).smem_bytes == 4 * (
-        4 * n + 43 * n + 43 * 43 + 3 * 43 + n + 128 + 16) == 89320
+        1792 + 11264 + 1024 + 128 + 1849 + 129 + 512) == 66792
     assert fs.launch_plan(34, 412, 128).smem_bytes <= fs.SMEM_PER_BLOCK
 
 
+@pytest.mark.parametrize("nv,K,L,want", [
+    (43, 26, 37, (4, 32, 11, 1, 2)), (43, 32, 37, (4, 32, 11, 1, 2)),
+    (43, 33, 37, (4, 32, 11, 2, 0)), (43, 384, 37, (4, 32, 11, 2, 0)),
+    (34, 29, 28, (4, 32, 9, 2, 1)), (34, 121, 28, (4, 32, 9, 2, 1)),
+    (60, 10, 50, (4, 32, 16, 1, 0))],
+    ids=["g1-k26", "g1-k32", "g1-k33", "g1-k384", "h3d-k29", "h3d-k121",
+         "nv60"])
+def test_launch_plan_picks_shared_instance(nv, K, L, want):
+    """Of the shared-memory instances with the fewest rows that hold nv,
+    the plan takes the one with the fewest columns in shared memory: the
+    G1 holds all of W in registers up to 32 contact slots (one contact
+    and two limit rows a thread), then two contacts a thread."""
+    plan = fs.launch_plan(nv, 3 * K + L, K)
+    assert plan[:5] == want
+    shared_cols = plan.cols_per_thread - (3 * plan.kc + plan.lc)
+    assert shared_cols == min(
+        fs._shared_cols(K, L, p) for p in fs.SHARED_PLANS
+        if p[0] * p[2] == plan.tr * plan.rpt)
+    if K <= 32 and nv == 43:
+        assert shared_cols == 0
+
+
 def test_launch_plan_refuses_what_no_plan_holds():
-    """Past the shared-memory limit (G1 374 slots, humanoid3d 471) no
-    plan holds the env, nor any system whose L alone outgrows a block."""
-    for (nv, L), k_max in (((43, 37), 374), ((34, 28), 471)):
+    """Past the shared-memory limit (G1 384 slots, humanoid3d 480) no
+    plan holds the env, nor any system whose L alone outgrows a block,
+    nor one of more dofs than the 64 rows of any plan."""
+    for (nv, L), k_max in (((43, 37), 384), ((34, 28), 480)):
         fs.launch_plan(nv, 3 * k_max + L, k_max)
         with pytest.raises(ValueError, match="shared memory"):
             fs.launch_plan(nv, 3 * (k_max + 1) + L, k_max + 1)
     with pytest.raises(ValueError):
         fs.launch_plan(250, 10, 0)
+    with pytest.raises(ValueError, match="rows of any plan"):
+        fs.launch_plan(65, 10, 0)
     with pytest.raises(ValueError):
         fs.launch_plan(34, 10, 4)          # L < 0
 
