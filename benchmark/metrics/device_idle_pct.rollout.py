@@ -1,0 +1,6 @@
+"""``device_idle_pct``, read in the rollout cells (see ``bmk.layer``)."""
+from bmk import layer
+
+
+def read(ctx):
+    return layer.device_idle_pct(ctx)

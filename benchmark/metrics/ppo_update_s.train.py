@@ -1,0 +1,7 @@
+"""Seconds of ``PPO.update`` per iteration in the window of a traced
+run (a span synchronised at both ends), the mean."""
+from bmk import layer
+
+
+def read(ctx):
+    return layer.span_mean(ctx, "ppo_update_s")
