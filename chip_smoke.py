@@ -87,10 +87,10 @@ Phases, each printed with its seconds:
      and timed on the rollout's first-step inputs, 64 launches, the BC
      loss ending below its step-0 value; the distilled actor is kept for
      its replay
- 12. tools: profiling.stage_breakdown at humanoid3d B 2048 (8 rows, the
-     kernel launched once per call by the forward, full-step and
-     env-step rows only) and profiling.throughput_sweep at B 256, 1024,
-     2048 and 4096; then the kernel held and timed at B 1, the batch of
+ 12. tools: profiling.stage_breakdown at humanoid3d B 2048 (env.step
+     and its stages timed in place by the program's spans, the kernel
+     launched once a step) and profiling.throughput_sweep at B 256,
+     1024, 2048 and 4096; then the kernel held and timed at B 1, the batch of
      the rendered paths, once per plan: on the first step with an
      active row of the h3d walk gate actor (the dashboard, the viewer's
      policy) and of the extracted G1 run artifact (play, play --video)
@@ -2774,12 +2774,15 @@ def main():
     t0 = phase("tools")
     print(f"profiling.stage_breakdown(humanoid3d walk, batch 2048) on "
           f"{card}:")
-    stages = profiling.stage_breakdown(env, 2048)
-    stage_launches = {name: n for name, _, _, n in stages}
-    check(len(stages) == 8 and stage_launches == {
-        "fk": 0, "fk+com": 0, "collision": 0, "crb(M)": 0, "rne(bias)": 0,
-        "forward": 1, "full step": 1, "env step": 1},
-        f"stage rows and their kernel launches per call: {stage_launches}")
+    from deepmimic_mujoco_tpu_torch.ops import fused_solve as fs
+
+    n0 = fs.fused_solve.launches
+    stages = profiling.stage_breakdown(env, 2048, steps=8)
+    launches = fs.fused_solve.launches - n0
+    check([name for name, _ in stages][:1] == ["env.step"]
+          and "engine.solve" in dict(stages) and launches == 9,
+          f"stage rows {[name for name, _ in stages]} and {launches} "
+          f"kernel launches in the warm-up and 8 steps")
     print(f"profiling.throughput_sweep(humanoid3d walk) on {card}:")
     sweep = profiling.throughput_sweep(env, SWEEP_BATCHES)
     print("  batch | env-steps/s\n" + "\n".join(

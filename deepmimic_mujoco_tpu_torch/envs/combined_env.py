@@ -43,6 +43,7 @@ from deepmimic_mujoco_tpu_torch.mocap import load_clip
 from deepmimic_mujoco_tpu_torch.models import load_model
 from deepmimic_mujoco_tpu_torch.models.physics_model import EULER
 from deepmimic_mujoco_tpu_torch.physics.step import Engine
+from deepmimic_mujoco_tpu_torch.utils import tracing
 
 WALK, RUN, GETUP, TO_GETUP = 0, 1, 2, 3
 MOTION_NAMES = ("walk", "run", "getup", "to_getup")
@@ -145,39 +146,40 @@ class DPCombinedEnv:
             for k, v in self.reward_tables.items()}
         self.getup_timeout_to_walk = getup_timeout_to_walk
 
-        clips = {
-            WALK: load_clip(MotionConfig("walk", self.robot).mocap_path,
-                            self.model),
-            RUN: load_clip(MotionConfig("run", self.robot).mocap_path,
-                           self.model),
-            GETUP: load_clip(MotionConfig("getup_facedown_towalk",
-                                          self.robot).mocap_path,
-                             self.model),
-        }
+        with tracing.setup("setup.mocap"):
+            clips = {
+                WALK: load_clip(MotionConfig("walk", self.robot).mocap_path,
+                                self.model),
+                RUN: load_clip(MotionConfig("run", self.robot).mocap_path,
+                               self.model),
+                GETUP: load_clip(MotionConfig("getup_facedown_towalk",
+                                              self.robot).mocap_path,
+                                 self.model),
+            }
+            lengths = [len(clips[WALK]), len(clips[RUN]), len(clips[GETUP]),
+                       TO_GETUP_LEN]
+            t_max = max(lengths)
+
+            def padstack(field):
+                rows = []
+                for mid in (WALK, RUN, GETUP):
+                    arr = getattr(clips[mid], field)
+                    pad = np.repeat(arr[-1:], t_max - len(arr), axis=0)
+                    rows.append(np.concatenate([arr, pad]))
+                # TO_GETUP: constant target = getup clip frame 1
+                const = getattr(clips[GETUP], field)[1]
+                rows.append(np.repeat(const[None], t_max, axis=0))
+                return torch.as_tensor(np.stack(rows), dtype=torch.float32,
+                                       device=self.device)
+
+            self.mocap_qpos = padstack("qpos")
+            self.mocap_qvel = padstack("qvel")
+            self.mocap_body_xpos = padstack("body_xpos")
+            self.mocap_geom_xpos = padstack("geom_xpos")
+            self.motion_lengths = torch.as_tensor(
+                lengths, dtype=torch.int64, device=self.device)
         self.clips = clips
-        lengths = [len(clips[WALK]), len(clips[RUN]), len(clips[GETUP]),
-                   TO_GETUP_LEN]
         self.lengths = tuple(lengths)
-        t_max = max(lengths)
-
-        def padstack(field):
-            rows = []
-            for mid in (WALK, RUN, GETUP):
-                arr = getattr(clips[mid], field)
-                pad = np.repeat(arr[-1:], t_max - len(arr), axis=0)
-                rows.append(np.concatenate([arr, pad]))
-            # TO_GETUP: constant target = getup clip frame 1
-            const = getattr(clips[GETUP], field)[1]
-            rows.append(np.repeat(const[None], t_max, axis=0))
-            return torch.as_tensor(np.stack(rows), dtype=torch.float32,
-                                   device=self.device)
-
-        self.mocap_qpos = padstack("qpos")
-        self.mocap_qvel = padstack("qvel")
-        self.mocap_body_xpos = padstack("body_xpos")
-        self.mocap_geom_xpos = padstack("geom_xpos")
-        self.motion_lengths = torch.as_tensor(lengths, dtype=torch.int64,
-                                              device=self.device)
         self._pa_headings = torch.as_tensor(_PA_HEADINGS, device=self.device)
         self._body_mass = torch.as_tensor(
             np.asarray(self.model.body_mass), dtype=torch.float32,
@@ -390,88 +392,94 @@ class DPCombinedEnv:
         is the empty warm start, which the next physics step starts
         from."""
         cfg = self.ENV_CFG
-        if force_state is not None:
-            qpos, qvel = force_state
-            data = self.engine.data_view(qpos, qvel)
-        else:
-            # stale-field semantics: see DPEnv.step
-            ctrl = self._mujoco_action(action)
-            qpos, qvel, data = self.engine.step(state.qpos, state.qvel,
-                                               ctrl, lam0=state.lam)
+        with tracing.span("env.physics"):
+            if force_state is not None:
+                qpos, qvel = force_state
+                data = self.engine.data_view(qpos, qvel)
+            else:
+                # stale-field semantics: see DPEnv.step
+                ctrl = self._mujoco_action(action)
+                qpos, qvel, data = self.engine.step(state.qpos, state.qvel,
+                                                   ctrl, lam0=state.lam)
 
         motion_id = state.motion_id
         n_steps = state.n_steps
         mlen = self.motion_lengths[motion_id]
         idx = n_steps % mlen
 
-        obs = self._obs(data, qpos, qvel, motion_id, n_steps,
-                        state.player_action)
+        with tracing.span("env.obs"):
+            obs = self._obs(data, qpos, qvel, motion_id, n_steps,
+                            state.player_action)
 
         # ---- reward (src/combined_env.py:321-355) ----------------------
-        mq, mv, mb, mg = self._mocap_at(motion_id, idx)
-        rew = reward_lib.calc_imitation_reward(
-            self._reward_tables_dev, qpos, qvel, data.kin.geom_xpos,
-            data.kin.xpos, mq, mv, mg, mb)
-        is_locomotion = (motion_id == WALK) | (motion_id == RUN)
-        is_to_getup = motion_id == TO_GETUP
-        vel_err = torch.linalg.vector_norm(mv[:, :2] - qvel[:, :2], dim=-1)
-        task_locomotion = torch.exp(-10.0 * vel_err)
-        d_pitch = torch.abs(rew.curr_root_pitch - rew.target_root_pitch)
-        d_roll = torch.abs(rew.curr_root_roll - rew.target_root_roll)
-        config_error = (torch.abs(rew.config_angle_diffs).sum(-1)
-                        + d_pitch + d_roll)
-        task_getup = torch.exp(-config_error / 5.0) / 3.0
-        imitation = torch.where(is_to_getup, 0.0, rew.reward)
-        task = torch.where(is_locomotion, task_locomotion,
-                           torch.where(is_to_getup, task_getup, 0.0))
-        reward = 0.7 * imitation + 0.3 * task
+        with tracing.span("env.reward"):
+            mq, mv, mb, mg = self._mocap_at(motion_id, idx)
+            rew = reward_lib.calc_imitation_reward(
+                self._reward_tables_dev, qpos, qvel, data.kin.geom_xpos,
+                data.kin.xpos, mq, mv, mg, mb)
+            is_locomotion = (motion_id == WALK) | (motion_id == RUN)
+            is_to_getup = motion_id == TO_GETUP
+            vel_err = torch.linalg.vector_norm(mv[:, :2] - qvel[:, :2],
+                                               dim=-1)
+            task_locomotion = torch.exp(-10.0 * vel_err)
+            d_pitch = torch.abs(rew.curr_root_pitch - rew.target_root_pitch)
+            d_roll = torch.abs(rew.curr_root_roll - rew.target_root_roll)
+            config_error = (torch.abs(rew.config_angle_diffs).sum(-1)
+                            + d_pitch + d_roll)
+            task_getup = torch.exp(-config_error / 5.0) / 3.0
+            imitation = torch.where(is_to_getup, 0.0, rew.reward)
+            task = torch.where(is_locomotion, task_locomotion,
+                               torch.where(is_to_getup, task_getup, 0.0))
+            reward = 0.7 * imitation + 0.3 * task
 
-        # ---- transitions (src/combined_env.py:398-445) ------------------
-        # timer end (reference quirk: PAWalk()==PAWalk() is False -> RUN)
-        out_of_time = n_steps >= (mlen - 1)
-        getup_next = WALK if self.getup_timeout_to_walk else RUN
-        new_motion = torch.where(out_of_time & (motion_id == GETUP),
-                                 getup_next, motion_id)
-        new_motion = torch.where(out_of_time & is_to_getup, GETUP,
-                                 new_motion)
+        with tracing.span("env.done"):
+            # ---- transitions (src/combined_env.py:398-445) ------------------
+            # timer end (reference quirk: PAWalk()==PAWalk() is False -> RUN)
+            out_of_time = n_steps >= (mlen - 1)
+            getup_next = WALK if self.getup_timeout_to_walk else RUN
+            new_motion = torch.where(out_of_time & (motion_id == GETUP),
+                                     getup_next, motion_id)
+            new_motion = torch.where(out_of_time & is_to_getup, GETUP,
+                                     new_motion)
 
-        # success: to_getup pose reached -> getup
-        alim = float(np.deg2rad(np.float32(15.0)))
-        is_success = ((torch.abs(rew.config_angle_diffs) < alim).all(-1)
-                      & (d_pitch < alim) & (d_roll < alim))
-        new_motion = torch.where(is_success & is_to_getup, GETUP, new_motion)
+            # success: to_getup pose reached -> getup
+            alim = float(np.deg2rad(np.float32(15.0)))
+            is_success = ((torch.abs(rew.config_angle_diffs) < alim).all(-1)
+                          & (d_pitch < alim) & (d_roll < alim))
+            new_motion = torch.where(is_success & is_to_getup, GETUP,
+                                     new_motion)
 
-        # fallen (walk/run only)
-        mass = self._body_mass
-        z_com = ((data.kin.xipos * mass).sum(-2) / mass.sum())[:, 2]
-        max_angle = float(np.deg2rad(np.float32(60.0)))
-        fallen = ((z_com < self.spec.low_z) | (z_com > 2.0)
-                  | (d_roll > max_angle) | (d_pitch > max_angle))
-        fallen = fallen & is_locomotion
-        no_amnesty = fallen & ~(n_steps > cfg.AMNESTY_STEPS)
-        done = no_amnesty
-        reason = torch.where(no_amnesty, DONE_FALLEN_NO_AMNESTY, 0)
-        new_motion = torch.where(fallen, TO_GETUP, new_motion)
+            # fallen (walk/run only)
+            mass = self._body_mass
+            z_com = ((data.kin.xipos * mass).sum(-2) / mass.sum())[:, 2]
+            max_angle = float(np.deg2rad(np.float32(60.0)))
+            fallen = ((z_com < self.spec.low_z) | (z_com > 2.0)
+                      | (d_roll > max_angle) | (d_pitch > max_angle))
+            fallen = fallen & is_locomotion
+            no_amnesty = fallen & ~(n_steps > cfg.AMNESTY_STEPS)
+            done = no_amnesty
+            reason = torch.where(no_amnesty, DONE_FALLEN_NO_AMNESTY, 0)
+            new_motion = torch.where(fallen, TO_GETUP, new_motion)
 
-        changed = new_motion != motion_id
-        new_steps = torch.where(changed, 0, n_steps)
+            changed = new_motion != motion_id
+            new_steps = torch.where(changed, 0, n_steps)
 
-        # max episode length
-        over = state.episode_length >= cfg.MAX_EP_LENGTH
-        reason = torch.where(over & ~done, DONE_MAX_EP_LEN, reason)
-        done = done | over
+            # max episode length
+            over = state.episode_length >= cfg.MAX_EP_LENGTH
+            reason = torch.where(over & ~done, DONE_MAX_EP_LEN, reason)
+            done = done | over
 
-        # obs guard (src/combined_env.py:474-485)
-        bad = ((~torch.isfinite(obs).all(-1))
-               | (torch.abs(obs).amax(-1) > 100.0)
-               | (~torch.isfinite(qpos).all(-1))
-               | (~torch.isfinite(qvel).all(-1)))
-        obs = torch.where(bad[:, None], 0.0, obs)
-        reward = torch.where(bad, 0.0, reward)
-        reason = torch.where(bad, DONE_OBS_OOB, reason)
-        done = done | bad
-        qpos = torch.where(torch.isfinite(qpos), qpos, 0.0)
-        qvel = torch.where(torch.isfinite(qvel), qvel, 0.0)
+            # obs guard (src/combined_env.py:474-485)
+            bad = ((~torch.isfinite(obs).all(-1))
+                   | (torch.abs(obs).amax(-1) > 100.0)
+                   | (~torch.isfinite(qpos).all(-1))
+                   | (~torch.isfinite(qvel).all(-1)))
+            obs = torch.where(bad[:, None], 0.0, obs)
+            reward = torch.where(bad, 0.0, reward)
+            reason = torch.where(bad, DONE_OBS_OOB, reason)
+            done = done | bad
+            qpos = torch.where(torch.isfinite(qpos), qpos, 0.0)
+            qvel = torch.where(torch.isfinite(qvel), qvel, 0.0)
 
         new_state = CombinedEnvState(
             qpos=qpos, qvel=qvel, motion_id=new_motion,
@@ -485,6 +493,7 @@ class DPCombinedEnv:
             contact_overflow=data.contacts.overflow)
         return new_state, out
 
+    @tracing.spanned("env.step")
     def step_auto_reset(self, state: CombinedEnvState, action: torch.Tensor,
                         generator: Optional[torch.Generator] = None,
                         handoff_buf: Optional[HandoffBuffer] = None,
@@ -494,12 +503,13 @@ class DPCombinedEnv:
         armed; the obs returned is the terminal obs. With a ``shard``,
         see ``_reset_state``."""
         new_state, out = self.step(state, action)
-        reset_state = self._reset_state(out.done.shape[0], generator,
-                                        handoff_buf, draws, shard)
-        d = out.done
-        picked = CombinedEnvState(*[
-            torch.where(d.view((-1,) + (1,) * (a.dim() - 1)), a, b)
-            for a, b in zip(reset_state, new_state)])
+        with tracing.span("env.reset"):
+            reset_state = self._reset_state(out.done.shape[0], generator,
+                                            handoff_buf, draws, shard)
+            d = out.done
+            picked = CombinedEnvState(*[
+                torch.where(d.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+                for a, b in zip(reset_state, new_state)])
         return picked, out
 
     def get_current_motion_state(self, state: CombinedEnvState):

@@ -35,6 +35,7 @@ from deepmimic_mujoco_tpu_torch.mocap.loader import resample_clip_speed
 from deepmimic_mujoco_tpu_torch.models import load_model
 from deepmimic_mujoco_tpu_torch.models.physics_model import EULER
 from deepmimic_mujoco_tpu_torch.physics.step import Engine
+from deepmimic_mujoco_tpu_torch.utils import tracing
 
 # done_reason codes (info["done_reason"] strings in the reference)
 DONE_NONE = 0
@@ -128,17 +129,18 @@ class DPEnv:
                 if k in ("body_mass", "jnt_lo", "jnt_hi") else v)
             for k, v in self.reward_tables.items()}
 
-        clip = load_clip(self.motion_config.mocap_path, self.model)
-        if speed != 1.0:
-            clip = resample_clip_speed(clip, speed)
+        with tracing.setup("setup.mocap"):
+            clip = load_clip(self.motion_config.mocap_path, self.model)
+            if speed != 1.0:
+                clip = resample_clip_speed(clip, speed)
+            f32 = lambda a: torch.as_tensor(
+                np.asarray(a), dtype=torch.float32, device=self.device)
+            self.mocap_qpos = f32(clip.qpos)
+            self.mocap_qvel = f32(clip.qvel)
+            self.mocap_body_xpos = f32(clip.body_xpos)
+            self.mocap_geom_xpos = f32(clip.geom_xpos)
         self.speed = speed
         self.clip = clip
-        f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
-                                        device=self.device)
-        self.mocap_qpos = f32(clip.qpos)
-        self.mocap_qvel = f32(clip.qvel)
-        self.mocap_body_xpos = f32(clip.body_xpos)
-        self.mocap_geom_xpos = f32(clip.geom_xpos)
         self.mocap_data_len = len(clip)
         self.mocap_dt = clip.dt
         self._body_mass = f32(self.model.body_mass)[:, None]
@@ -206,69 +208,73 @@ class DPEnv:
         dynamics: the state is set and the fields are FRESH at it, like
         the reference's set_state + forward; its ``lam`` is the empty
         warm start."""
-        if force_state is not None:
-            qpos, qvel = force_state
-            data = self.engine.data_view(qpos, qvel)
-        else:
-            # derived fields (FK, contacts, cvel, forces) come from the
-            # step's own forward pass at the PRE-integration state — the
-            # reference's post-``mj_step`` staleness semantics
-            ctrl = self._mujoco_action(action)
-            qpos, qvel, data = self.engine.step(state.qpos, state.qvel,
-                                               ctrl, lam0=state.lam)
+        with tracing.span("env.physics"):
+            if force_state is not None:
+                qpos, qvel = force_state
+                data = self.engine.data_view(qpos, qvel)
+            else:
+                # derived fields (FK, contacts, cvel, forces) come from
+                # the step's own forward pass at the PRE-integration
+                # state — the reference's post-``mj_step`` staleness
+                # semantics
+                ctrl = self._mujoco_action(action)
+                qpos, qvel, data = self.engine.step(state.qpos, state.qvel,
+                                                   ctrl, lam0=state.lam)
 
-        obs = self._obs(data, qpos, qvel, state.idx_curr)
+        with tracing.span("env.obs"):
+            obs = self._obs(data, qpos, qvel, state.idx_curr)
 
         idx = state.idx_curr
-        rew = reward_lib.calc_imitation_reward(
-            self._reward_tables_dev, qpos, qvel, data.kin.geom_xpos,
-            data.kin.xpos, self.mocap_qpos[idx], self.mocap_qvel[idx],
-            self.mocap_geom_xpos[idx], self.mocap_body_xpos[idx])
+        with tracing.span("env.reward"):
+            rew = reward_lib.calc_imitation_reward(
+                self._reward_tables_dev, qpos, qvel, data.kin.geom_xpos,
+                data.kin.xpos, self.mocap_qpos[idx], self.mocap_qvel[idx],
+                self.mocap_geom_xpos[idx], self.mocap_body_xpos[idx])
+        with tracing.span("env.done"):
+            # ---- termination (reference: src/deepmimic_env.py:418-442) ----
+            B = qpos.shape[0]
+            done = torch.zeros(B, dtype=torch.bool, device=self.device)
+            reason = torch.zeros(B, dtype=torch.int64, device=self.device)
+            if not self.is_floor_motion:
+                mass = self._body_mass
+                z_com = ((data.kin.xipos * mass).sum(-2) / mass.sum())[:, 2]
+                low = z_com < self.spec.low_z
+                high = z_com > 2.0
+                done = done | low | high
+                reason = torch.where(low, DONE_LOW_Z,
+                                     torch.where(high, DONE_HIGH_Z, reason))
+            if self.check_run_angles:
+                max_angle = float(np.deg2rad(60.0))
+                roll_bad = torch.abs(rew.curr_root_roll
+                                     - rew.target_root_roll) > max_angle
+                pitch_bad = torch.abs(rew.curr_root_pitch
+                                      - rew.target_root_pitch) > max_angle
+                reason = torch.where(roll_bad & ~done, DONE_RUN_ROLL, reason)
+                reason = torch.where(pitch_bad & ~done & ~roll_bad,
+                                     DONE_RUN_PITCH, reason)
+                done = done | roll_bad | pitch_bad
+            if self.ENV_CFG.MAX_EP_LENGTH:
+                over = state.episode_length >= self.ENV_CFG.MAX_EP_LENGTH
+                reason = torch.where(over & ~done, DONE_MAX_EP_LEN, reason)
+                done = done | over
+            if self.is_acyclical:
+                end = (idx + 1) == self.mocap_data_len
+                reason = torch.where(end & ~done, DONE_ACYCLICAL_END, reason)
+                done = done | end
 
-        # ---- termination (reference: src/deepmimic_env.py:418-442) ----
-        B = qpos.shape[0]
-        done = torch.zeros(B, dtype=torch.bool, device=self.device)
-        reason = torch.zeros(B, dtype=torch.int64, device=self.device)
-        if not self.is_floor_motion:
-            mass = self._body_mass
-            z_com = ((data.kin.xipos * mass).sum(-2) / mass.sum())[:, 2]
-            low = z_com < self.spec.low_z
-            high = z_com > 2.0
-            done = done | low | high
-            reason = torch.where(low, DONE_LOW_Z,
-                                 torch.where(high, DONE_HIGH_Z, reason))
-        if self.check_run_angles:
-            max_angle = float(np.deg2rad(60.0))
-            roll_bad = torch.abs(rew.curr_root_roll
-                                 - rew.target_root_roll) > max_angle
-            pitch_bad = torch.abs(rew.curr_root_pitch
-                                  - rew.target_root_pitch) > max_angle
-            reason = torch.where(roll_bad & ~done, DONE_RUN_ROLL, reason)
-            reason = torch.where(pitch_bad & ~done & ~roll_bad,
-                                 DONE_RUN_PITCH, reason)
-            done = done | roll_bad | pitch_bad
-        if self.ENV_CFG.MAX_EP_LENGTH:
-            over = state.episode_length >= self.ENV_CFG.MAX_EP_LENGTH
-            reason = torch.where(over & ~done, DONE_MAX_EP_LEN, reason)
-            done = done | over
-        if self.is_acyclical:
-            end = (idx + 1) == self.mocap_data_len
-            reason = torch.where(end & ~done, DONE_ACYCLICAL_END, reason)
-            done = done | end
+            # divergence / obs out of bounds guard (reference :465-476)
+            bad = ((~torch.isfinite(obs).all(-1))
+                   | (torch.abs(obs).amax(-1) > 100.0)
+                   | (~torch.isfinite(qpos).all(-1))
+                   | (~torch.isfinite(qvel).all(-1)))
+            obs = torch.where(bad[:, None], 0.0, obs)
+            reward = torch.where(bad, 0.0, rew.reward)
+            reason = torch.where(bad, DONE_OBS_OOB, reason)
+            done = done | bad
 
-        # divergence / obs out of bounds guard (reference :465-476)
-        bad = ((~torch.isfinite(obs).all(-1))
-               | (torch.abs(obs).amax(-1) > 100.0)
-               | (~torch.isfinite(qpos).all(-1))
-               | (~torch.isfinite(qvel).all(-1)))
-        obs = torch.where(bad[:, None], 0.0, obs)
-        reward = torch.where(bad, 0.0, rew.reward)
-        reason = torch.where(bad, DONE_OBS_OOB, reason)
-        done = done | bad
-
-        # guard state against NaN poisoning the episode after auto-reset
-        qpos = torch.where(torch.isfinite(qpos), qpos, 0.0)
-        qvel = torch.where(torch.isfinite(qvel), qvel, 0.0)
+            # guard state against NaN poisoning the episode after auto-reset
+            qpos = torch.where(torch.isfinite(qpos), qpos, 0.0)
+            qvel = torch.where(torch.isfinite(qvel), qvel, 0.0)
 
         new_state = DPEnvState(
             qpos=qpos, qvel=qvel,
@@ -284,6 +290,7 @@ class DPEnv:
                       contact_overflow=data.contacts.overflow)
         return new_state, out
 
+    @tracing.spanned("env.step")
     def step_auto_reset(self, state: DPEnvState, action: torch.Tensor,
                         generator: Optional[torch.Generator] = None,
                         shard=None) -> Tuple[DPEnvState, StepOut]:
@@ -292,11 +299,12 @@ class DPEnv:
         terminal obs, matching SB3 vec-env accounting); with a ``shard``,
         at this rank's slice of the global batch's draw."""
         new_state, out = self.step(state, action)
-        reset_state = self._fresh_state(sharded(
-            lambda m: self._draw_frames(m, generator), out.done.shape[0],
-            shard))
-        d = out.done
-        picked = DPEnvState(*[
-            torch.where(d.view((-1,) + (1,) * (a.dim() - 1)), a, b)
-            for a, b in zip(reset_state, new_state)])
+        with tracing.span("env.reset"):
+            reset_state = self._fresh_state(sharded(
+                lambda m: self._draw_frames(m, generator), out.done.shape[0],
+                shard))
+            d = out.done
+            picked = DPEnvState(*[
+                torch.where(d.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+                for a, b in zip(reset_state, new_state)])
         return picked, out

@@ -33,6 +33,7 @@ from deepmimic_mujoco_tpu_torch.models.physics_model import (
     PLANE, RK4, SPHERE, Mesh, Option, PhysicsModel,
 )
 from deepmimic_mujoco_tpu_torch.utils import hostquat as hq
+from deepmimic_mujoco_tpu_torch.utils import tracing
 
 _DEFAULT_SOLREF = (0.02, 1.0)
 _DEFAULT_SOLIMP = (0.9, 0.95, 0.001, 0.5, 2.0)
@@ -649,6 +650,7 @@ class _Builder:
         )
 
 
+@tracing.spanned("setup.model")
 def load_model(path: str) -> PhysicsModel:
     """Parse an MJCF file into a :class:`PhysicsModel`."""
     return _Builder(path).parse()

@@ -61,6 +61,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from deepmimic_mujoco_tpu_torch.utils import tracing
+
 POWER_ITERS = 12  # matches physics/solver.py:_pgs_iterate
 # the register plans' range (csrc/fused_solve.cu:REG_NV_MAX ...); larger
 # sizes take the shared-memory plan
@@ -157,7 +159,8 @@ def _load(clocks: bool = False):
     name = "fused_solve_clocks" if clocks else "fused_solve"
     with _lib_lock:
         if name not in _libs:
-            lib = ctypes.CDLL(build_all(names=(name,))[name])
+            with tracing.setup("setup.kernel"):
+                lib = ctypes.CDLL(build_all(names=(name,))[name])
             fn = lib.fused_solve_launch
             fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 13
                            + [ctypes.c_void_p])

@@ -25,6 +25,7 @@ from deepmimic_mujoco_tpu_torch.models.physics_model import PhysicsModel
 from deepmimic_mujoco_tpu_torch.ops.fused_solve import fused_solve_parts
 from deepmimic_mujoco_tpu_torch.physics.collision import Contacts
 from deepmimic_mujoco_tpu_torch.physics.kinematics import Com
+from deepmimic_mujoco_tpu_torch.utils import tracing
 from deepmimic_mujoco_tpu_torch.utils.device import const
 
 _LIMIT_SOLREF = (0.02, 1.0)
@@ -149,10 +150,20 @@ def solve_constraints(m: PhysicsModel, com: Com, M_hat: torch.Tensor,
 
     if lam0 is None:
         lam0 = qpos.new_zeros(qpos.shape[0], 3 * K + L)
-    qacc, qfrc, lam = fused_solve_parts(
-        M_hat, cd_lin, cd_ang, contacts.frame, rpos, w, sign, qfrc_smooth,
-        torch.cat(aref, 1), torch.cat(imp, 1),
-        torch.cat(active, 1).to(dtype), contacts.friction[..., 0], lam0,
-        K=K, L=L, ld_idx=tuple(int(i) for i in ld),
-        iterations=iterations, pyramidal=(cone == "pyramidal"))
+    aref, imp = torch.cat(aref, 1), torch.cat(imp, 1)
+    active = torch.cat(active, 1).to(dtype)
+    if tracing.on():
+        # slot occupancy, summed only when read (no kernel, no sync here)
+        B = active.shape[0]
+        tracing.count("solve.slots", B * K)
+        tracing.count("solve.active_slots", active[:, :K])
+        tracing.count("solve.limit_rows", B * L)
+        tracing.count("solve.active_limit_rows", active[:, 3 * K:])
+    with tracing.span("engine.solve"):
+        qacc, qfrc, lam = fused_solve_parts(
+            M_hat, cd_lin, cd_ang, contacts.frame, rpos, w, sign,
+            qfrc_smooth, aref, imp, active,
+            contacts.friction[..., 0], lam0, K=K, L=L,
+            ld_idx=tuple(int(i) for i in ld), iterations=iterations,
+            pyramidal=(cone == "pyramidal"))
     return SolveResult(qacc=qacc, qfrc_constraint=qfrc, lam=lam)

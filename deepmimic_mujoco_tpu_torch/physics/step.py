@@ -30,6 +30,7 @@ from deepmimic_mujoco_tpu_torch.physics.kinematics import (
 )
 from deepmimic_mujoco_tpu_torch.physics.solver import solve_constraints
 from deepmimic_mujoco_tpu_torch.utils import quat as tq
+from deepmimic_mujoco_tpu_torch.utils import tracing
 from deepmimic_mujoco_tpu_torch.utils.device import (
     const, fp32_physics, resolve_device,
 )
@@ -75,13 +76,14 @@ class Engine:
             model.njnt and model.jnt_type[0] == FREE
             and np.all(np.asarray(model.jnt_type[1:]) == HINGE))
         self.dt = model.opt.timestep
-        self.tables = build_pair_tables(model, mesh_subcapsules)
-        if any(g.is_proxy.any() for g in self.tables):
-            calib = (model.key_qpos[0] if model.key_qpos is not None
-                     else _neutral_qpos(model))
-            self.tables = calibrate_proxy_gaps(model, self.tables, calib)
-        self.body_dof = dynamics.body_dof_mask(model)
-        self.limit_table = dynamics.limited_hinge_table(model)
+        with tracing.setup("setup.tables"):
+            self.tables = build_pair_tables(model, mesh_subcapsules)
+            if any(g.is_proxy.any() for g in self.tables):
+                calib = (model.key_qpos[0] if model.key_qpos is not None
+                         else _neutral_qpos(model))
+                self.tables = calibrate_proxy_gaps(model, self.tables, calib)
+            self.body_dof = dynamics.body_dof_mask(model)
+            self.limit_table = dynamics.limited_hinge_table(model)
         self.n_constraint_rows = (3 * self.max_contacts
                                   + len(self.limit_table[0]))
         # Warm-start forces are carried PAIR-KEYED, not slot-keyed: top-K
@@ -108,9 +110,11 @@ class Engine:
 
     # ---- stages -------------------------------------------------------
     def position_stage(self, qpos):
-        kin = fwd_kinematics(self.m, qpos)
-        com = com_pos(self.m, kin)
-        contacts = collide(self.m, self.tables, kin, self.max_contacts)
+        with tracing.span("engine.kinematics"):
+            kin = fwd_kinematics(self.m, qpos)
+            com = com_pos(self.m, kin)
+        with tracing.span("engine.collision"):
+            contacts = collide(self.m, self.tables, kin, self.max_contacts)
         return kin, com, contacts
 
     def forward(self, qpos, qvel, ctrl, h_implicit: float = 0.0,
@@ -132,38 +136,39 @@ class Engine:
         kin, com, contacts = self.position_stage(qpos)
         if lam0 is not None:
             lam0 = self._gather_warm(contacts.slot_idx, lam0)
-        cvel, cdof_dot = com_vel(m, com, qvel)
+        with tracing.span("engine.dynamics"):
+            cvel, cdof_dot = com_vel(m, com, qvel)
 
-        M = dynamics.crb(m, com)
-        bias = dynamics.rne(m, com, cvel, cdof_dot, qvel)
-        dev, dt = qvel.device, qvel.dtype
-        damping = const(m, "dof_damping", lambda: m.dof_damping, dev, dt)
-        floss = const(m, "dof_frictionloss", lambda: m.dof_frictionloss,
-                      dev, dt)
-        if h_implicit:
-            c_fric = floss / torch.clamp(torch.abs(qvel), min=5e-3)
-            fric_force = -c_fric * qvel
-        else:
-            fric_force = -floss * torch.tanh(qvel / 0.05)
+            M = dynamics.crb(m, com)
+            bias = dynamics.rne(m, com, cvel, cdof_dot, qvel)
+            dev, dt = qvel.device, qvel.dtype
+            damping = const(m, "dof_damping", lambda: m.dof_damping, dev, dt)
+            floss = const(m, "dof_frictionloss", lambda: m.dof_frictionloss,
+                          dev, dt)
+            if h_implicit:
+                c_fric = floss / torch.clamp(torch.abs(qvel), min=5e-3)
+                fric_force = -c_fric * qvel
+            else:
+                fric_force = -floss * torch.tanh(qvel / 0.05)
 
-        passive = (dynamics.passive_force(m, qpos, qvel)
-                   - damping * qvel + fric_force)
-        act = dynamics.actuator_force(m, ctrl)
-        qfrc_smooth = passive + act - bias
+            passive = (dynamics.passive_force(m, qpos, qvel)
+                       - damping * qvel + fric_force)
+            act = dynamics.actuator_force(m, ctrl)
+            qfrc_smooth = passive + act - bias
 
-        M_hat = (M + h_implicit * torch.diag_embed(damping + c_fric)
-                 if h_implicit else M)
+            M_hat = (M + h_implicit * torch.diag_embed(damping + c_fric)
+                     if h_implicit else M)
 
-        res = solve_constraints(
-            m, com, M_hat, qfrc_smooth, qpos, qvel, contacts,
-            self.body_dof, self.limit_table, iterations=self.iterations,
-            lam0=lam0, cone=self.cone)
+        with tracing.span("engine.constraints"):
+            res = solve_constraints(
+                m, com, M_hat, qfrc_smooth, qpos, qvel, contacts,
+                self.body_dof, self.limit_table, iterations=self.iterations,
+                lam0=lam0, cone=self.cone)
+            lam = self._scatter_warm(contacts.slot_idx, res.lam)
 
         return EngineData(kin=kin, com=com, cvel=cvel, contacts=contacts,
                           qacc=res.qacc, qfrc_smooth=qfrc_smooth,
-                          qfrc_constraint=res.qfrc_constraint,
-                          lam=self._scatter_warm(contacts.slot_idx,
-                                                 res.lam))
+                          qfrc_constraint=res.qfrc_constraint, lam=lam)
 
     # ---- pair-keyed warm start ------------------------------------------
     # Carried layout: [normal(K), t1(K), t2(K), limits(L), slot_idx(K) as
@@ -239,27 +244,30 @@ class Engine:
         if not self.warm_start_lam:
             lam0 = None
         d = self.forward(qpos, qvel, ctrl, h_implicit=h, lam0=lam0)
-        qvel_new = qvel + d.qacc * h
-        qpos_new = self.integrate_pos(qpos, qvel_new, h)
+        with tracing.span("engine.integrate"):
+            qvel_new = qvel + d.qacc * h
+            qpos_new = self.integrate_pos(qpos, qvel_new, h)
         return qpos_new, qvel_new, d
 
     def _step_rk4(self, qpos, qvel, ctrl):
         v_prev, a_prev = qvel, torch.zeros_like(qvel)
         vs, accs = [], []
         for off in (0.0, self.dt / 2, self.dt / 2, self.dt):
-            q_i = self.integrate_pos(qpos, v_prev, off)
-            v_i = qvel + a_prev * off
+            with tracing.span("engine.integrate"):
+                q_i = self.integrate_pos(qpos, v_prev, off)
+                v_i = qvel + a_prev * off
             a_i = self.forward(q_i, v_i, ctrl).qacc
             vs.append(v_i)
             accs.append(a_i)
             v_prev, a_prev = v_i, a_i
-        w = const(self.m, "rk4_weights",
-                  lambda: np.asarray([1.0, 2.0, 2.0, 1.0], np.float32),
-                  qpos.device, qpos.dtype)[:, None, None] / 6.0
-        v_avg = (torch.stack(vs) * w).sum(0)
-        a_avg = (torch.stack(accs) * w).sum(0)
-        qpos_new = self.integrate_pos(qpos, v_avg, self.dt)
-        qvel_new = qvel + a_avg * self.dt
+        with tracing.span("engine.integrate"):
+            w = const(self.m, "rk4_weights",
+                      lambda: np.asarray([1.0, 2.0, 2.0, 1.0], np.float32),
+                      qpos.device, qpos.dtype)[:, None, None] / 6.0
+            v_avg = (torch.stack(vs) * w).sum(0)
+            a_avg = (torch.stack(accs) * w).sum(0)
+            qpos_new = self.integrate_pos(qpos, v_avg, self.dt)
+            qvel_new = qvel + a_avg * self.dt
         return qpos_new, qvel_new, self.data_view(qpos, qvel)
 
     def data_view(self, qpos, qvel) -> EngineData:

@@ -65,6 +65,7 @@ import torch.distributed as dist
 
 from deepmimic_mujoco_tpu_torch.parallel.mesh import data_sharding
 from deepmimic_mujoco_tpu_torch.rl import networks
+from deepmimic_mujoco_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -276,6 +277,7 @@ class PPO:
             log_std_max=cfg.log_std_max, device="cpu",
             generator=generator).to(self.device)
 
+    @tracing.spanned("setup.train_state")
     def init(self, seed: int = 0) -> TrainState:
         cfg = self.cfg
         net = self.make_net(torch.Generator().manual_seed(seed))
@@ -329,6 +331,7 @@ class PPO:
                 "parallel.shard_train_state")
 
     # ---- one iteration ----------------------------------------------------
+    @tracing.spanned("ppo.rollout")
     def rollout(self, ts: TrainState):
         """``horizon`` steps of step_auto_reset under the sampled policy.
         Returns (Transition of (horizon, n_envs, ...) tensors, per-step
@@ -343,24 +346,28 @@ class PPO:
         trs, stats = [], []
         with torch.no_grad():
             for _ in range(cfg.horizon):
-                mean, log_std, value = net(obs)
-                noise = self.draw_noise(ts, mean)
-                if sh is not None:
-                    noise = sh.shard(noise)
-                action = mean + torch.exp(log_std) * noise
-                logp = networks.gaussian_logp(action, mean, log_std)
-                env_a = networks.env_action(net, obs, action)
+                with tracing.span("ppo.policy"):
+                    mean, log_std, value = net(obs)
+                    noise = self.draw_noise(ts, mean)
+                    if sh is not None:
+                        noise = sh.shard(noise)
+                    action = mean + torch.exp(log_std) * noise
+                    logp = networks.gaussian_logp(action, mean, log_std)
+                    env_a = networks.env_action(net, obs, action)
                 if self._handoff:
                     prev_motion = states.motion_id
                     prev_pa = states.player_action
                     states, out = self.env.step_auto_reset(
                         states, env_a, ts.gens["rsi"], handoff_buf=hbuf,
                         **env_kw)
-                    rows = (self.env.handoff_capture_mask(prev_motion, out),
-                            states.qpos, states.qvel, prev_pa, out.motion_id)
-                    if sh is not None:
-                        rows = _gather_columns(sh, rows, 0)
-                    hbuf = self.env.update_handoff_buffer(hbuf, *rows)
+                    with tracing.span("ppo.handoff"):
+                        rows = (self.env.handoff_capture_mask(prev_motion,
+                                                              out),
+                                states.qpos, states.qvel, prev_pa,
+                                out.motion_id)
+                        if sh is not None:
+                            rows = _gather_columns(sh, rows, 0)
+                        hbuf = self.env.update_handoff_buffer(hbuf, *rows)
                 else:
                     states, out = self.env.step_auto_reset(
                         states, env_a, ts.gens["rsi"], **env_kw)
@@ -397,6 +404,7 @@ class PPO:
             stats = torch.cat([sums, ov], 1)
         return traj, stats
 
+    @tracing.spanned("ppo.gae")
     def gae(self, ts: TrainState, traj: Transition):
         """(advantages, returns), each (horizon, n_envs). The bootstrap
         value is the net's at ``ts.last_obs`` (after the rollout)."""
@@ -484,6 +492,7 @@ class PPO:
         torch._foreach_mul_(grads, torch.where(
             keep, 1.0, torch.full_like(norm, self.cfg.max_grad_norm)))
 
+    @tracing.spanned("ppo.minibatch")
     def minibatch_step(self, ts: TrainState, mb, params, adv_all=None):
         """One clipped update of ``ts``'s params (``params``, in order)
         on minibatch ``mb`` (a rank's part of the minibatch whose
@@ -506,6 +515,7 @@ class PPO:
         ts.opt.step(self.lr_at(ts.opt.count, ts.lr_scale))
         return aux.detach()
 
+    @tracing.spanned("ppo.update")
     def update(self, ts: TrainState, batch):
         """``epochs`` passes over ``batch`` = (obs, action, logp, value,
         adv, ret), each flattened to (B, ...) (the global batch, on every
@@ -538,9 +548,12 @@ class PPO:
                 ep_aux = ts.mesh.all_reduce(ep_aux) / ts.mesh.world
             aux.append(ep_aux)
             if cfg.target_kl is not None and not stopped:
-                stopped = float(aux[-1][:, 3].mean()) > 1.5 * cfg.target_kl
+                with tracing.span("ppo.host_read"):
+                    stopped = (float(aux[-1][:, 3].mean())
+                               > 1.5 * cfg.target_kl)
         return torch.stack(aux)
 
+    @tracing.spanned("ppo.iter")
     def train_iter(self, ts: TrainState):
         """One iteration (rollout + GAE + update); advances ``ts`` in
         place and returns (ts, IterStats)."""
@@ -557,7 +570,8 @@ class PPO:
         aux = self.update(ts, batch)
         means = aux.reshape(-1, 5).mean(0)
         if cfg.adaptive_lr_kl and cfg.target_kl is not None:
-            kl_e0 = float(aux[0, :, 3].mean())   # epoch 1: always unmasked
+            with tracing.span("ppo.host_read"):
+                kl_e0 = float(aux[0, :, 3].mean())  # epoch 1: always unmasked
             s = np.float32(ts.lr_scale)
             if kl_e0 > 1.5 * cfg.target_kl:
                 s = s * np.float32(0.7)

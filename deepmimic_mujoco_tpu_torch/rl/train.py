@@ -12,13 +12,19 @@ cuda). The default ``--env`` is the combined walk/run/getup env, with
 its handoff and facedown options; ``--rk4`` trains under RK4. Every 5th
 evaluation writes the eval dashboard's video and plots (cv2 and
 matplotlib, checked before training starts); ``--no-render`` turns them
-off.
+off. ``--trace-spans`` records the program's spans and counters
+(``utils/tracing.py``) and adds to each iteration's metrics row the
+training thread's host seconds of ``ppo.rollout``, ``ppo.gae`` and
+``ppo.update`` (``span_s/<name>``) and the share of the fused solve's
+contact slots in use (``solve_slot_occupancy_pct``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import threading
 import time
 
 M = 1_000_000
@@ -84,6 +90,10 @@ def parse_reason(argv=None, required=True):
                         "script hyperparams (horizon 128, 4 epochs, "
                         "lr 2.5e-4; reference: src/ppo.py:16-42)")
     p.add_argument("--no-wandb", action="store_true")
+    p.add_argument("--trace-spans", action="store_true",
+                   help="record the program's spans and log each "
+                        "iteration's host seconds by phase and the "
+                        "solve's slot occupancy")
     p.add_argument("--no-render", action="store_true")
     p.add_argument("--out", default="~/deep_mimic")
     p.add_argument("--device", default="cuda",
@@ -196,6 +206,7 @@ def main(argv=None):
     from deepmimic_mujoco_tpu_torch.rl import checkpoint
     from deepmimic_mujoco_tpu_torch.rl.eval import ThreadedEvaluator
     from deepmimic_mujoco_tpu_torch.rl.ppo import PPO
+    from deepmimic_mujoco_tpu_torch.utils import tracing
 
     env, cfg = build(args)
     ppo = PPO(env, cfg)
@@ -255,9 +266,24 @@ def main(argv=None):
     steps_per_iter = cfg.n_envs * cfg.horizon
     eval_every_iters = max(args.eval_every // steps_per_iter, 1)
 
+    def span_seconds():
+        """This (the training) thread's host seconds by phase and the
+        solve's slot occupancy since the last row; the recorder starts
+        afresh."""
+        snap = tracing.snapshot()
+        tracing.reset()
+        secs = tracing.seconds_by_name(snap.spans, threading.get_ident())
+        row = {f"span_s/{k}": secs[k] for k in (
+            "ppo.rollout", "ppo.gae", "ppo.update") if k in secs}
+        if snap.calls("solve.slots"):
+            row["solve_slot_occupancy_pct"] = (
+                100.0 * snap.total("solve.active_slots")
+                / snap.total("solve.slots"))
+        return row
+
     def callback(it, ts, stats):
         gstep = (it + 1) * steps_per_iter
-        extra = {}
+        extra = span_seconds() if args.trace_spans else {}
         if stats.handoff_count is not None:
             extra["handoff_count"] = int(stats.handoff_count)
         log_metrics({
@@ -287,8 +313,10 @@ def main(argv=None):
     print("Begin Learn")
     print("-----------")
     try:
-        ts = ppo.train(total_timesteps=args.total, callback=callback,
-                       seed=args.seed, init_params=init_params)
+        with (tracing.collect() if args.trace_spans
+              else contextlib.nullcontext()):
+            ts = ppo.train(total_timesteps=args.total, callback=callback,
+                           seed=args.seed, init_params=init_params)
     finally:
         evaluator.stop()
     path = checkpoint.save(os.path.join(out_dir, run_name + ".pt"), ts)

@@ -5,15 +5,20 @@ The port of the JAX package's ``tools/profiling.py`` (the reference's
 per-phase wall-clock prints and Gantt plotter: src/profile_dpenv.py,
 src/profile_subproc_dpenv.py:1-24, src/plot_profiling.py:831-868):
 
-1. ``stage_breakdown``: each pipeline stage timed alone over a batch
-   (fk, fk+com, collision, crb(M), rne(bias), forward, full step, env
-   step), with the fused-solve kernel's launches per call.
+1. ``stage_breakdown``: a batch env step's host time by stage, timed in
+   place by the program's spans (``utils/tracing.py``).
 2. ``solve_breakdown``: the stages inside the forward pass.
 3. ``train_breakdown``: a PPO iteration's rollout, and full iterations
    at 1 and ``epochs`` epochs, so the per-epoch cost is the slope.
 4. ``throughput_sweep``: rollout env-steps/s at several batch sizes.
 5. ``trace``: a batch rollout under ``torch.profiler``: a Chrome trace
-   and the ``key_averages`` table.
+   and the ``key_averages`` table. It runs under
+   ``utils.tracing.collect(annotate=True)``, so the trace's CPU and GPU
+   rows name the program's stages: ``env.step`` and under it
+   ``env.physics`` (``engine.kinematics``, ``engine.collision``,
+   ``engine.dynamics``, ``engine.constraints`` with ``engine.solve``,
+   ``engine.integrate``), ``env.obs``, ``env.reward``, ``env.done`` and
+   ``env.reset`` (the full list: ``utils/tracing.py``).
 
 On the card every timing is taken around a loop that ends in
 ``torch.cuda.synchronize()``, after a warm-up call; on the CPU the same
@@ -60,46 +65,46 @@ def _reset(env, batch, seed=0):
         return env.reset(batch, generator=g), g
 
 
-def stage_breakdown(env, batch: int = 1024):
-    """Rows (stage, ms per batch, env-evals/s, kernel launches per
-    call) for the 8 stages of one step."""
-    from deepmimic_mujoco_tpu_torch.physics import dynamics
-    from deepmimic_mujoco_tpu_torch.physics.collision import collide
-    from deepmimic_mujoco_tpu_torch.physics.kinematics import (
-        com_pos, com_vel, fwd_kinematics,
-    )
+def stage_breakdown(env, batch: int = 1024, steps: int = 8):
+    """Rows (stage, host ms a step) of ``steps`` batch env steps timed
+    in place by the program's spans under ``tracing.collect()``: first
+    ``env.step`` whole, then each ``env.*`` and ``engine.*`` stage's
+    self time (its spans less the spans inside them, summed within a
+    step), the median over the steps."""
+    import statistics
 
-    m, eng, dev = env.model, env.engine, env.device
+    from deepmimic_mujoco_tpu_torch.utils import tracing
+
+    dev = env.device
     (states, _), g = _reset(env, batch)
-    q, v = states.qpos, states.qvel
-    u = torch.zeros(batch, m.nu, device=dev)
     a = torch.zeros(batch, env.action_size, device=dev)
-
-    def rne(q, v):
-        com = com_pos(m, fwd_kinematics(m, q))
-        cvel, cdof_dot = com_vel(m, com, v)
-        return dynamics.rne(m, com, cvel, cdof_dot, v)
-
-    stages = {
-        "fk": (lambda q: fwd_kinematics(m, q), (q,)),
-        "fk+com": (lambda q: com_pos(m, fwd_kinematics(m, q)), (q,)),
-        "collision": (lambda q: collide(m, eng.tables, fwd_kinematics(m, q),
-                                        eng.max_contacts), (q,)),
-        "crb(M)": (lambda q: dynamics.crb(m, com_pos(m, fwd_kinematics(
-            m, q))), (q,)),
-        "rne(bias)": (rne, (q, v)),
-        "forward": (lambda q, v, u: eng.forward(q, v, u).qacc, (q, v, u)),
-        "full step": (lambda q, v, u: eng.step(q, v, u)[0], (q, v, u)),
-        "env step": (lambda s, a: env.step_auto_reset(s, a, g)[1].reward,
-                     (states, a)),
-    }
+    with torch.no_grad():
+        states, _ = env.step_auto_reset(states, a, g)   # warm-up
+        _sync(dev)
+        tracing.reset()
+        with tracing.collect():
+            for _ in range(steps):
+                states, _ = env.step_auto_reset(states, a, g)
+                _sync(dev)
+    spans = tracing.snapshot().spans
+    tracing.reset()
+    inner = {}
+    for s in spans:
+        if s.parent is not None:
+            inner[s.parent] = inner.get(s.parent, 0) + s.end_ns - s.start_ns
+    per_step = {}       # step's root id -> {stage: self ns}
+    for s in spans:
+        stage = per_step.setdefault(s.root, {})
+        stage[s.name] = (stage.get(s.name, 0) + s.end_ns - s.start_ns
+                         - (0 if s.name == "env.step" else inner.get(s.id, 0)))
+    names = ["env.step"] + sorted({n for st in per_step.values() for n in st}
+                                  - {"env.step"})
     rows = []
-    for name, (fn, args) in stages.items():
-        dt, launches = _bench(fn, *args, device=dev)
-        rows.append((name, dt * 1e3, batch / dt, launches))
-        print(f"{name:>10}: {dt * 1e3:8.2f} ms/batch "
-              f"({batch / dt:12,.0f} env-evals/s; {launches:g} kernel "
-              f"launches)", flush=True)
+    for name in names:
+        ms = statistics.median(st.get(name, 0) / 1e6
+                               for st in per_step.values())
+        rows.append((name, ms))
+        print(f"{name:>18}: {ms:8.2f} ms a step", flush=True)
     return rows
 
 
@@ -239,9 +244,12 @@ def throughput_sweep(env, batches=(64, 256, 1024, 4096), steps: int = 64,
 
 def trace(env, out_dir: str = None, batch: int = 1024, steps: int = 32):
     """``steps`` steps of a batch rollout under torch.profiler (CPU and
-    CUDA activities): writes ``trace.json`` (Chrome trace) into
-    ``out_dir`` and prints the key_averages table. Returns the path."""
+    CUDA activities), the program's spans annotated: writes
+    ``trace.json`` (Chrome trace) into ``out_dir`` and prints the
+    key_averages table. Returns the path."""
     from torch.profiler import ProfilerActivity, profile
+
+    from deepmimic_mujoco_tpu_torch.utils import tracing
 
     out_dir = out_dir or os.path.join(tempfile.gettempdir(), "dm_torch_trace")
     os.makedirs(out_dir, exist_ok=True)
@@ -254,7 +262,8 @@ def trace(env, out_dir: str = None, batch: int = 1024, steps: int = 32):
     with torch.no_grad():
         states, out = env.step_auto_reset(states, a, g)   # warm-up
         _sync(dev)
-        with profile(activities=acts) as prof:
+        with profile(activities=acts) as prof, \
+                tracing.collect(annotate=True):
             for _ in range(steps):
                 states, out = env.step_auto_reset(states, a, g)
             _sync(dev)
@@ -280,7 +289,7 @@ def plot_results(rows, path: str, kind: str):
     if kind == "stages":
         ax.barh([r[0] for r in rows], [r[1] for r in rows],
                 color="tab:blue")
-        ax.set_xlabel("ms per batch step")
+        ax.set_xlabel("host ms a batch step")
     else:
         ax.bar([str(r[0]) for r in rows], [r[1] for r in rows],
                color="tab:green")

@@ -21,8 +21,9 @@
   step.
 - ``probe`` rows against the JAX ``probe`` for one start over 5 steps
   (ep_len and reason equal, ep_rew, dx and z to 5e-3 absolute).
-- ``stage_breakdown`` at batch 4: 8 non-negative rows; the solve, PPO
-  and sweep harnesses and the ``torch.profiler`` trace run at tiny sizes.
+- ``stage_breakdown`` at batch 4: ``env.step`` and its stages, each a
+  non-negative host time; the solve, PPO and sweep harnesses and the
+  ``torch.profiler`` trace run at tiny sizes.
 """
 import json
 import os
@@ -303,12 +304,15 @@ def test_probe_matches_jax(gyms):
 def test_stage_breakdown_on_cpu(gyms):
     from deepmimic_mujoco_tpu_torch.tools.profiling import stage_breakdown
 
-    rows = stage_breakdown(gyms[1].env, batch=4)
-    assert [r[0] for r in rows] == ["fk", "fk+com", "collision", "crb(M)",
-                                    "rne(bias)", "forward", "full step",
-                                    "env step"]
-    assert all(ms >= 0 and rate >= 0 and n == 0 for _, ms, rate, n in rows)
-    assert all(np.isfinite(ms) for _, ms, _, _ in rows)
+    rows = stage_breakdown(gyms[1].env, batch=4, steps=2)
+    assert [r[0] for r in rows] == [
+        "env.step", "engine.collision", "engine.constraints",
+        "engine.dynamics", "engine.integrate", "engine.kinematics",
+        "engine.solve", "env.done", "env.obs", "env.physics", "env.reset",
+        "env.reward"]
+    assert all(ms >= 0 and np.isfinite(ms) for _, ms in rows)
+    # each stage lies inside its step, so its median under the step's
+    assert all(ms <= rows[0][1] for _, ms in rows[1:])
 
 
 @pytest.mark.parametrize("mode", ["solve", "sweep", "train", "trace"])
@@ -333,7 +337,10 @@ def test_profiling_modes_on_cpu(gyms, tmp_path, mode):
         assert len(rows) == 6
     else:
         path = profiling.trace(env, out_dir=str(tmp_path), batch=2, steps=1)
-        assert json.load(open(path))["traceEvents"]
+        events = json.load(open(path))["traceEvents"]
+        # the program's stages are annotated in the trace
+        assert {"env.step", "engine.collision", "engine.solve"} <= {
+            e.get("name") for e in events}
 
 
 def test_resolve_no_card_refuses():
