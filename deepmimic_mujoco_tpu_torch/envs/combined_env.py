@@ -38,6 +38,7 @@ from deepmimic_mujoco_tpu_torch.envs.config import (
 from deepmimic_mujoco_tpu_torch.envs.dp_env import (
     DONE_MAX_EP_LEN, DONE_OBS_OOB,
 )
+from deepmimic_mujoco_tpu_torch.envs.graphs import StepGraphs
 from deepmimic_mujoco_tpu_torch.envs.spec import RobotSpec
 from deepmimic_mujoco_tpu_torch.mocap import load_clip
 from deepmimic_mujoco_tpu_torch.models import load_model
@@ -140,10 +141,8 @@ class DPCombinedEnv:
         self.spec = RobotSpec.build(self.model, self.robot_config)
         self.reward_tables = reward_lib.make_reward_tables(self.model,
                                                            self.spec)
-        self._reward_tables_dev = {
-            k: (torch.as_tensor(v, dtype=torch.float32, device=self.device)
-                if k in ("body_mass", "jnt_lo", "jnt_hi") else v)
-            for k, v in self.reward_tables.items()}
+        self._reward_tables_dev = reward_lib.device_tables(
+            self.reward_tables, self.device)
         self.getup_timeout_to_walk = getup_timeout_to_walk
 
         with tracing.setup("setup.mocap"):
@@ -187,6 +186,7 @@ class DPCombinedEnv:
 
         self.action_size = self.model.nu - self.spec.n_hand_actions
         self.obs_size = obs_lib.obs_size(self.model, self.spec, self.ENV_CFG)
+        self._graphs = StepGraphs(self)
 
     # ---- helpers --------------------------------------------------------
     def _mocap_at(self, motion_id, idx):
@@ -391,7 +391,6 @@ class DPCombinedEnv:
         dynamics: the fields are fresh at the forced state and ``lam``
         is the empty warm start, which the next physics step starts
         from."""
-        cfg = self.ENV_CFG
         with tracing.span("env.physics"):
             if force_state is not None:
                 qpos, qvel = force_state
@@ -401,7 +400,13 @@ class DPCombinedEnv:
                 ctrl = self._mujoco_action(action)
                 qpos, qvel, data = self.engine.step(state.qpos, state.qvel,
                                                    ctrl, lam0=state.lam)
+        return self._outcome(state, qpos, qvel, data)
 
+    def _outcome(self, state: CombinedEnvState, qpos, qvel, data
+                 ) -> Tuple[CombinedEnvState, CombinedStepOut]:
+        """The step after the physics: obs, reward, transitions,
+        termination, guards."""
+        cfg = self.ENV_CFG
         motion_id = state.motion_id
         n_steps = state.n_steps
         mlen = self.motion_lengths[motion_id]
@@ -501,8 +506,30 @@ class DPCombinedEnv:
         """Training step: on done, the next state is a fresh reset drawn
         from ``generator`` (or ``draws``), from the handoff buffer where
         armed; the obs returned is the terminal obs. With a ``shard``,
-        see ``_reset_state``."""
+        see ``_reset_state``.
+
+        On a CUDA device with the Euler integrator the step is replayed
+        as two CUDA graphs around the solve's call (``envs/graphs.py``);
+        elsewhere it runs ``step_auto_reset_eager``. Both give the same
+        step, and return tensors the caller owns."""
+        return self._graphs.step(
+            (state, action, handoff_buf, draws), generator, (shard,),
+            lambda: self.step_auto_reset_eager(state, action, generator,
+                                               handoff_buf, draws, shard))
+
+    def step_auto_reset_eager(self, state: CombinedEnvState,
+                              action: torch.Tensor,
+                              generator: Optional[torch.Generator] = None,
+                              handoff_buf: Optional[HandoffBuffer] = None,
+                              draws: Optional[ResetDraws] = None,
+                              shard=None):
+        """``step_auto_reset`` op by op, every stage in its span."""
         new_state, out = self.step(state, action)
+        return self._auto_reset(new_state, out, generator, handoff_buf,
+                                draws, shard)
+
+    def _auto_reset(self, new_state, out, generator, handoff_buf, draws,
+                    shard):
         with tracing.span("env.reset"):
             reset_state = self._reset_state(out.done.shape[0], generator,
                                             handoff_buf, draws, shard)
@@ -511,6 +538,23 @@ class DPCombinedEnv:
                 torch.where(d.view((-1,) + (1,) * (a.dim() - 1)), a, b)
                 for a, b in zip(reset_state, new_state)])
         return picked, out
+
+    # the Euler step_auto_reset split at the solve, for envs/graphs.py
+    def graph_pre(self, args):
+        state, action = args[:2]
+        with tracing.span("env.physics"):
+            return self.engine.step_pre(state.qpos, state.qvel,
+                                        self._mujoco_action(action),
+                                        lam0=state.lam)
+
+    def graph_post(self, args, extra, pre, res, generator):
+        state, _, handoff_buf, draws = args
+        with tracing.span("env.physics"):
+            qpos, qvel, data = self.engine.step_post(state.qpos, state.qvel,
+                                                     pre, res)
+        new_state, out = self._outcome(state, qpos, qvel, data)
+        return self._auto_reset(new_state, out, generator, handoff_buf,
+                                draws, *extra)
 
     def get_current_motion_state(self, state: CombinedEnvState):
         """(qpos, qvel) of the current motion target (reference:

@@ -29,6 +29,7 @@ from deepmimic_mujoco_tpu_torch.envs import reward as reward_lib
 from deepmimic_mujoco_tpu_torch.envs.config import (
     DPEnvConfig, MotionConfig, RobotConfig,
 )
+from deepmimic_mujoco_tpu_torch.envs.graphs import StepGraphs
 from deepmimic_mujoco_tpu_torch.envs.spec import RobotSpec
 from deepmimic_mujoco_tpu_torch.mocap import load_clip
 from deepmimic_mujoco_tpu_torch.mocap.loader import resample_clip_speed
@@ -124,10 +125,8 @@ class DPEnv:
         self.spec = RobotSpec.build(self.model, self.robot_config)
         self.reward_tables = reward_lib.make_reward_tables(self.model,
                                                            self.spec)
-        self._reward_tables_dev = {
-            k: (torch.as_tensor(v, dtype=torch.float32, device=self.device)
-                if k in ("body_mass", "jnt_lo", "jnt_hi") else v)
-            for k, v in self.reward_tables.items()}
+        self._reward_tables_dev = reward_lib.device_tables(
+            self.reward_tables, self.device)
 
         with tracing.setup("setup.mocap"):
             clip = load_clip(self.motion_config.mocap_path, self.model)
@@ -153,6 +152,7 @@ class DPEnv:
 
         self.action_size = self.model.nu - self.spec.n_hand_actions
         self.obs_size = obs_lib.obs_size(self.model, self.spec, self.ENV_CFG)
+        self._graphs = StepGraphs(self)
 
     # ---- helpers -------------------------------------------------------
     def _obs(self, data, qpos, qvel, idx_curr):
@@ -220,7 +220,11 @@ class DPEnv:
                 ctrl = self._mujoco_action(action)
                 qpos, qvel, data = self.engine.step(state.qpos, state.qvel,
                                                    ctrl, lam0=state.lam)
+        return self._outcome(state, qpos, qvel, data)
 
+    def _outcome(self, state: DPEnvState, qpos, qvel, data
+                 ) -> Tuple[DPEnvState, StepOut]:
+        """The step after the physics: obs, reward, termination, guards."""
         with tracing.span("env.obs"):
             obs = self._obs(data, qpos, qvel, state.idx_curr)
 
@@ -297,8 +301,25 @@ class DPEnv:
         """Training step: on done, the next state is a fresh RSI reset at
         a frame drawn from ``generator`` (the obs returned is the
         terminal obs, matching SB3 vec-env accounting); with a ``shard``,
-        at this rank's slice of the global batch's draw."""
+        at this rank's slice of the global batch's draw.
+
+        On a CUDA device with the Euler integrator the step is replayed
+        as two CUDA graphs around the solve's call (``envs/graphs.py``);
+        elsewhere it runs ``step_auto_reset_eager``. Both give the same
+        step, and return tensors the caller owns."""
+        return self._graphs.step(
+            (state, action), generator, (shard,),
+            lambda: self.step_auto_reset_eager(state, action, generator,
+                                               shard))
+
+    def step_auto_reset_eager(self, state: DPEnvState, action: torch.Tensor,
+                              generator: Optional[torch.Generator] = None,
+                              shard=None) -> Tuple[DPEnvState, StepOut]:
+        """``step_auto_reset`` op by op, every stage in its span."""
         new_state, out = self.step(state, action)
+        return self._auto_reset(new_state, out, generator, shard)
+
+    def _auto_reset(self, new_state, out, generator, shard):
         with tracing.span("env.reset"):
             reset_state = self._fresh_state(sharded(
                 lambda m: self._draw_frames(m, generator), out.done.shape[0],
@@ -308,3 +329,19 @@ class DPEnv:
                 torch.where(d.view((-1,) + (1,) * (a.dim() - 1)), a, b)
                 for a, b in zip(reset_state, new_state)])
         return picked, out
+
+    # the Euler step_auto_reset split at the solve, for envs/graphs.py
+    def graph_pre(self, args):
+        state, action = args
+        with tracing.span("env.physics"):
+            return self.engine.step_pre(state.qpos, state.qvel,
+                                        self._mujoco_action(action),
+                                        lam0=state.lam)
+
+    def graph_post(self, args, extra, pre, res, generator):
+        state, _ = args
+        with tracing.span("env.physics"):
+            qpos, qvel, data = self.engine.step_post(state.qpos, state.qvel,
+                                                     pre, res)
+        new_state, out = self._outcome(state, qpos, qvel, data)
+        return self._auto_reset(new_state, out, generator, *extra)

@@ -17,6 +17,7 @@ from deepmimic_mujoco_tpu_torch.envs.spec import RobotSpec
 from deepmimic_mujoco_tpu_torch.physics.collision import Contacts
 from deepmimic_mujoco_tpu_torch.physics.step import EngineData
 from deepmimic_mujoco_tpu_torch.utils import quat as tq
+from deepmimic_mujoco_tpu_torch.utils.device import const
 
 
 class PlayerActionObs(NamedTuple):
@@ -26,12 +27,12 @@ class PlayerActionObs(NamedTuple):
     heading_world: torch.Tensor   # (B, 3)
 
 
-def _contact_flag(contacts: Contacts, geom_ids, floor_geom: int):
+def _contact_flag(m, contacts: Contacts, geom_ids, floor_geom: int):
     """(B,) 1.0 when any active contact joins one of geom_ids to the
     floor."""
     active = contacts.dist < contacts.includemargin
-    ids = torch.as_tensor(np.asarray(geom_ids, np.int64),
-                          device=contacts.geom1.device)
+    ids = const(m, ("contact_flag_geoms", tuple(int(g) for g in geom_ids)),
+                lambda: np.asarray(geom_ids, np.int64), contacts.geom1.device)
     in_set1 = torch.isin(contacts.geom1, ids)
     in_set2 = torch.isin(contacts.geom2, ids)
     floor1 = contacts.geom1 == floor_geom
@@ -79,12 +80,11 @@ def get_obs(m, spec: RobotSpec, cfg, data: EngineData, qpos, qvel,
         parts.append(get_torso_obs(spec, data, cfg.VEL_OBS_SCALE))
     if cfg.ADD_FOOT_CONTACT_OBS:
         parts.append(torch.stack([
-            _contact_flag(data.contacts, [spec.rfoot_geom], spec.floor_geom),
-            _contact_flag(data.contacts, [spec.lfoot_geom], spec.floor_geom),
-        ], -1))
+            _contact_flag(m, data.contacts, [g], spec.floor_geom)
+            for g in (spec.rfoot_geom, spec.lfoot_geom)], -1))
     if cfg.ADD_EXTRA_CONTACT_OBS:
         parts.append(torch.stack([
-            _contact_flag(data.contacts, [g], spec.floor_geom)
+            _contact_flag(m, data.contacts, [g], spec.floor_geom)
             for g in spec.extra_contact_geoms], -1))
     if cfg.ADD_JOINT_FORCE_OBS:
         parts.append((data.qfrc_smooth + data.qfrc_constraint)

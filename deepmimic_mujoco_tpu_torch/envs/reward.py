@@ -49,13 +49,25 @@ def make_reward_tables(m, spec: RobotSpec):
     )
 
 
+def device_tables(tables, device):
+    """``make_reward_tables``'s arrays as tensors on ``device`` (masses
+    and limits float32, indices int64), so a step's reward copies
+    nothing from the host."""
+    floats = ("body_mass", "jnt_lo", "jnt_hi")
+    return {k: torch.as_tensor(np.asarray(v), device=device,
+                               dtype=torch.float32 if k in floats
+                               else torch.int64)
+            for k, v in tables.items()}
+
+
 def calc_imitation_reward(tables, qpos, qvel, geom_xpos, body_xpos,
                           mocap_qpos, mocap_qvel, mocap_geom_xpos,
                           mocap_body_xpos,
                           wp=0.75, wv=0.1, we=0.15, wc=0.0, wj=-0.1
                           ) -> RewardInfo:
     """Every state argument carries a leading env axis; ``tables`` holds
-    numpy arrays (``make_reward_tables``)."""
+    ``make_reward_tables``'s arrays, as numpy arrays or as tensors on
+    the state's device (``device_tables``)."""
     dev, dt = qpos.device, qpos.dtype
     qpos_idx = tables["qpos_idx"]
     qvel_idx = tables["qvel_idx"]

@@ -29,6 +29,7 @@ from deepmimic_mujoco_tpu_torch.models.physics_model import (
     BOX, CAPSULE, CYLINDER, MESH, PLANE, SPHERE, PhysicsModel,
 )
 from deepmimic_mujoco_tpu_torch.physics.kinematics import Kin
+from deepmimic_mujoco_tpu_torch.utils.device import const
 
 # narrow-phase group ids
 K_PLANE_SPHERE, K_PLANE_CAPSULE, K_PLANE_BOX, K_PLANE_MESH = 0, 1, 2, 3
@@ -542,8 +543,8 @@ def _narrow_groups(m, tables: List[PairGroup], kin: Kin):
             p0l = _rot_t(fR, p0 - fp)
             dl = _rot_t(fR, p1 - p0)
             S = 8
-            tv = torch.tensor([k / (S - 1.0) for k in range(S)],
-                              dtype=x.dtype, device=x.device)
+            tv = const(m, "capsule_box_t", lambda: np.asarray(
+                [k / (S - 1.0) for k in range(S)]), x.device, x.dtype)
             plk = p0l[:, :, None, :] + dl[:, :, None, :] * tv[:, None]
             ck, dk = _point_box(plk, p["size2"][:, None, :])  # (B, P, S)
             sel = _smallest(dk, 1)

@@ -54,7 +54,8 @@ def crb(m: PhysicsModel, com: Com) -> torch.Tensor:
               cdof.dtype)
     Ic_tot = (D @ com.cinert.reshape(B, m.nbody, 36)).reshape(
         B, m.nbody, 6, 6)
-    Icd = Ic_tot[:, np.asarray(m.dof_bodyid)]
+    Icd = Ic_tot[:, const(m, "dof_bodyid", lambda: np.asarray(
+        m.dof_bodyid, np.int64), cdof.device)]
     F = torch.einsum("bjac,bjc->bja", Icd, cdof)
     G = cdof @ F.transpose(-1, -2)   # G[i, j] = cdof_i . F_j
     mask = const(m, "dof_ancestor_mask", lambda: dof_ancestor_mask(m),
@@ -86,7 +87,9 @@ def rne(m: PhysicsModel, com: Com, cvel: torch.Tensor,
          + spatial.force_cross(cvel, Iv))
     D = const(m, "descendants", lambda: t.descendants, dev, dt)
     ftot = D @ f                                           # subtree sums
-    return (com.cdof * ftot[:, np.asarray(m.dof_bodyid)]).sum(-1)
+    dof_body = const(m, "dof_bodyid", lambda: np.asarray(
+        m.dof_bodyid, np.int64), dev)
+    return (com.cdof * ftot[:, dof_body]).sum(-1)
 
 
 def passive_force(m: PhysicsModel, qpos: torch.Tensor,

@@ -163,7 +163,7 @@ def com_pos(m: PhysicsModel, kin: Kin) -> Com:
     sub_mom = D @ (mass[:, None] * kin.xipos)            # (B, nbody, 3)
     subtree_com = sub_mom / torch.clamp(sub_mass, min=1e-12)[:, None]
 
-    anchor = subtree_com[:, np.asarray(m.body_rootid)]   # (B, nbody, 3)
+    anchor = subtree_com[:, _i(m, "body_rootid", lambda: m.body_rootid, x)]
 
     diag = torch.diag_embed(_c(m, "body_inertia", lambda: m.body_inertia, x))
     inertia_com = kin.ximat @ diag @ kin.ximat.transpose(-1, -2)
@@ -187,10 +187,11 @@ def com_pos(m: PhysicsModel, kin: Kin) -> Com:
         rows.append(trans)
         rows.append(torch.cat([u, lin], -1))
     if hinge_jids:
-        hj = np.asarray(hinge_jids)
+        hj = _i(m, "hinge_jids", lambda: hinge_jids, x)
         u = kin.xaxis[:, hj]
         a = kin.xanchor[:, hj]
-        o = anchor[:, np.asarray(m.jnt_bodyid)[hj]]
+        o = anchor[:, _i(m, "hinge_bodyid", lambda: np.asarray(
+            m.jnt_bodyid)[hinge_jids], x)]
         rows.append(torch.cat([u, torch.linalg.cross(u, o - a, dim=-1)], -1))
     cdof = torch.cat(rows, 1)
     return Com(subtree_com=subtree_com, cinert=cinert, cdof=cdof)

@@ -13,6 +13,10 @@ joint limits are unilateral rows with J = +-e_dof.
 Fixed shapes: K contact slots * 3 rows (normals | t1 | t2) + L limit
 rows, activity handled by masks. The per-env J is never formed here:
 the solve entry builds J^T from the contact-Jacobian parts.
+
+``solve_constraints`` is ``assemble`` (the rows and every input of the
+solve) then ``solve`` (the fused solve's call, its counters and span);
+a step replayed as CUDA graphs calls ``solve`` alone between them.
 """
 from __future__ import annotations
 
@@ -84,28 +88,35 @@ def contact_jac_parts(m: PhysicsModel, com: Com, contacts: Contacts,
     return cd_lin, cd_ang, rpos, w
 
 
-def solve_constraints(m: PhysicsModel, com: Com, M_hat: torch.Tensor,
-                      qfrc_smooth: torch.Tensor, qpos: torch.Tensor,
-                      qvel: torch.Tensor, contacts: Contacts,
-                      body_dof: np.ndarray, limit_table,
-                      iterations: int = 50,
-                      lam0=None, cone: str = "elliptic") -> SolveResult:
-    """``M_hat`` (B, nv, nv) is the implicit-damping-augmented mass
-    matrix; the inverse-mass solve happens inside the fused solve."""
+class SolveInputs(NamedTuple):
+    """Every tensor argument of the fused solve's parts entry, in its
+    order; ``active`` is boolean (the solve's call converts it)."""
+    M_hat: torch.Tensor        # (B, nv, nv)
+    cd_lin: torch.Tensor       # (B, nv, 3)
+    cd_ang: torch.Tensor       # (B, nv, 3)
+    frame: torch.Tensor        # (B, K, 3, 3)
+    rpos: torch.Tensor         # (B, K, 3)
+    w: torch.Tensor            # (B, K, nv)
+    sign: torch.Tensor         # (B, L)
+    qfrc_smooth: torch.Tensor  # (B, nv)
+    aref: torch.Tensor         # (B, n)
+    imp: torch.Tensor          # (B, n)
+    active: torch.Tensor       # (B, n) bool
+    mu: torch.Tensor           # (B, K)
+    lam0: torch.Tensor         # (B, n)
+
+
+def assemble(m: PhysicsModel, com: Com, M_hat: torch.Tensor,
+             qfrc_smooth: torch.Tensor, qpos: torch.Tensor,
+             qvel: torch.Tensor, contacts: Contacts, body_dof: np.ndarray,
+             limit_table, lam0=None) -> SolveInputs:
+    """The constraint rows and every input of the solve (segment-major:
+    normals | t1 | t2 | limits)."""
     dt = m.opt.timestep
     dev, dtype = qfrc_smooth.device, qfrc_smooth.dtype
     K = contacts.dist.shape[1]
-    if not iterations:
-        # constraints disabled (smooth-parity tests): the JAX package
-        # returns qacc_smooth with zero constraint force and zero lam
-        Lc, _ = torch.linalg.cholesky_ex(M_hat)
-        qacc = torch.cholesky_solve(qfrc_smooth[..., None], Lc)[..., 0]
-        return SolveResult(
-            qacc=qacc, qfrc_constraint=torch.zeros_like(qfrc_smooth),
-            lam=qfrc_smooth.new_zeros(qfrc_smooth.shape[0],
-                                      3 * K + len(limit_table[0])))
 
-    # ---- contact rows (segment-major: normals | t1 | t2 | limits) -----
+    # ---- contact rows -------------------------------------------------
     # the contact velocity contracts through u = sum_n w v cd (Jp v =
     # u_lin + u_ang x r per contact)
     cd_lin, cd_ang, rpos, w = contact_jac_parts(m, com, contacts, body_dof)
@@ -130,8 +141,8 @@ def solve_constraints(m: PhysicsModel, com: Com, M_hat: torch.Tensor,
     L = len(ld)
     sign = qpos.new_zeros(qpos.shape[0], 0)
     if L:
-        qj = qpos[:, np.asarray(lq)]
-        vj = qvel[:, np.asarray(ld)]
+        qj = qpos[:, const(m, "limit_qadr", lambda: lq, dev)]
+        vj = qvel[:, const(m, "limit_dadr", lambda: ld, dev)]
         dist_lo = qj - const(m, "limit_lo", lambda: llo, dev, dtype)
         dist_hi = const(m, "limit_hi", lambda: lhi, dev, dtype) - qj
         # one row per joint: the nearer limit (both can't bind at once)
@@ -150,8 +161,34 @@ def solve_constraints(m: PhysicsModel, com: Com, M_hat: torch.Tensor,
 
     if lam0 is None:
         lam0 = qpos.new_zeros(qpos.shape[0], 3 * K + L)
-    aref, imp = torch.cat(aref, 1), torch.cat(imp, 1)
-    active = torch.cat(active, 1).to(dtype)
+    mu = contacts.friction[..., 0]
+    if dev.type == "cuda":
+        # the kernel reads these whole: the strided views laid out here,
+        # inside a captured step (envs/graphs.py), not at the solve's call
+        cd_lin, cd_ang, mu = (x.contiguous() for x in (cd_lin, cd_ang, mu))
+    return SolveInputs(
+        M_hat=M_hat, cd_lin=cd_lin, cd_ang=cd_ang, frame=contacts.frame,
+        rpos=rpos, w=w, sign=sign, qfrc_smooth=qfrc_smooth,
+        aref=torch.cat(aref, 1), imp=torch.cat(imp, 1),
+        active=torch.cat(active, 1), mu=mu, lam0=lam0)
+
+
+def solve(si: SolveInputs, ld_idx, iterations: int = 50,
+          cone: str = "elliptic") -> SolveResult:
+    """The fused solve's call on ``assemble``'s inputs: one kernel launch
+    on the card. ``ld_idx`` are the limited dofs (the limit table's
+    first column)."""
+    K, L = si.frame.shape[1], si.sign.shape[1]
+    if not iterations:
+        # constraints disabled (smooth-parity tests): the JAX package
+        # returns qacc_smooth with zero constraint force and zero lam
+        Lc, _ = torch.linalg.cholesky_ex(si.M_hat)
+        qacc = torch.cholesky_solve(si.qfrc_smooth[..., None], Lc)[..., 0]
+        return SolveResult(
+            qacc=qacc, qfrc_constraint=torch.zeros_like(si.qfrc_smooth),
+            lam=si.qfrc_smooth.new_zeros(si.qfrc_smooth.shape[0],
+                                         3 * K + L))
+    active = si.active.to(si.qfrc_smooth.dtype)
     if tracing.on():
         # slot occupancy, summed only when read (no kernel, no sync here)
         B = active.shape[0]
@@ -161,9 +198,22 @@ def solve_constraints(m: PhysicsModel, com: Com, M_hat: torch.Tensor,
         tracing.count("solve.active_limit_rows", active[:, 3 * K:])
     with tracing.span("engine.solve"):
         qacc, qfrc, lam = fused_solve_parts(
-            M_hat, cd_lin, cd_ang, contacts.frame, rpos, w, sign,
-            qfrc_smooth, aref, imp, active,
-            contacts.friction[..., 0], lam0, K=K, L=L,
-            ld_idx=tuple(int(i) for i in ld), iterations=iterations,
+            si.M_hat, si.cd_lin, si.cd_ang, si.frame, si.rpos, si.w, si.sign,
+            si.qfrc_smooth, si.aref, si.imp, active, si.mu, si.lam0, K=K,
+            L=L, ld_idx=tuple(int(i) for i in ld_idx), iterations=iterations,
             pyramidal=(cone == "pyramidal"))
     return SolveResult(qacc=qacc, qfrc_constraint=qfrc, lam=lam)
+
+
+def solve_constraints(m: PhysicsModel, com: Com, M_hat: torch.Tensor,
+                      qfrc_smooth: torch.Tensor, qpos: torch.Tensor,
+                      qvel: torch.Tensor, contacts: Contacts,
+                      body_dof: np.ndarray, limit_table,
+                      iterations: int = 50,
+                      lam0=None, cone: str = "elliptic") -> SolveResult:
+    """``M_hat`` (B, nv, nv) is the implicit-damping-augmented mass
+    matrix; the inverse-mass solve happens inside the fused solve.
+    ``assemble`` then ``solve``."""
+    return solve(assemble(m, com, M_hat, qfrc_smooth, qpos, qvel, contacts,
+                          body_dof, limit_table, lam0), limit_table[0],
+                 iterations, cone)

@@ -9,6 +9,11 @@ Pipeline: kinematics -> com quantities -> collision -> velocities ->
 CRBA -> RNE bias -> passive + actuation -> fused mass-matrix and
 contact/limit constraint solve -> integrate (semi-implicit Euler with
 implicit joint damping, or RK4, the reference MJCF's integrator).
+
+The Euler step splits at the solve's call: ``step_pre`` (everything up
+to the solve's inputs), ``solve`` and ``step_post`` (the warm-start
+scatter and the integration) are ``step`` op for op; the env step
+captures each side as a CUDA graph (``envs/graphs.py``).
 """
 from __future__ import annotations
 
@@ -28,7 +33,9 @@ from deepmimic_mujoco_tpu_torch.physics.collision import (
 from deepmimic_mujoco_tpu_torch.physics.kinematics import (
     Com, Kin, com_pos, com_vel, fwd_kinematics,
 )
-from deepmimic_mujoco_tpu_torch.physics.solver import solve_constraints
+from deepmimic_mujoco_tpu_torch.physics.solver import (
+    SolveInputs, SolveResult, assemble, solve,
+)
 from deepmimic_mujoco_tpu_torch.utils import quat as tq
 from deepmimic_mujoco_tpu_torch.utils import tracing
 from deepmimic_mujoco_tpu_torch.utils.device import (
@@ -46,6 +53,17 @@ class EngineData(NamedTuple):
     qfrc_smooth: torch.Tensor      # (B, nv)
     qfrc_constraint: torch.Tensor  # (B, nv)
     lam: torch.Tensor              # (B, n_warm_rows) warm-start carry
+
+
+class PreSolve(NamedTuple):
+    """A forward pass's fields before the constraint solve."""
+    kin: Kin
+    com: Com
+    cvel: torch.Tensor             # (B, nbody, 6)
+    contacts: Contacts
+    qfrc_smooth: torch.Tensor      # (B, nv)
+    M_hat: torch.Tensor            # (B, nv, nv)
+    lam0: Optional[torch.Tensor]   # (B, 3K + L) gathered warm start
 
 
 def _neutral_qpos(model: PhysicsModel) -> np.ndarray:
@@ -131,7 +149,34 @@ class Engine:
         applied explicitly. ``lam0`` (B, n_warm_rows) warm-starts the
         constraint solve in PAIR-SLOT space; it is gathered onto this
         step's compacted slots.
+
+        The smooth dynamics, the constraint rows, ``solve`` and
+        ``forward_post`` in turn, the last three inside the
+        ``engine.constraints`` span.
         """
+        pre = self._smooth(qpos, qvel, ctrl, h_implicit, lam0)
+        with tracing.span("engine.constraints"):
+            res = self.solve(self._assemble(pre, qpos, qvel))
+            return self.forward_post(pre, res)
+
+    def solve(self, si: SolveInputs) -> SolveResult:
+        """The fused solve's call on the constraint rows' inputs."""
+        return solve(si, self.limit_table[0], self.iterations, self.cone)
+
+    def forward_post(self, pre: PreSolve, res: SolveResult) -> EngineData:
+        """``forward`` after the solve: the step's data, its warm start
+        scattered back to pair-slot space."""
+        return EngineData(kin=pre.kin, com=pre.com, cvel=pre.cvel,
+                          contacts=pre.contacts, qacc=res.qacc,
+                          qfrc_smooth=pre.qfrc_smooth,
+                          qfrc_constraint=res.qfrc_constraint,
+                          lam=self._scatter_warm(pre.contacts.slot_idx,
+                                                 res.lam))
+
+    def _smooth(self, qpos, qvel, ctrl, h_implicit, lam0) -> PreSolve:
+        """Kinematics, collision, the warm start's gather and the smooth
+        dynamics: all a forward pass computes before its constraint
+        rows."""
         m = self.m
         kin, com, contacts = self.position_stage(qpos)
         if lam0 is not None:
@@ -158,17 +203,13 @@ class Engine:
 
             M_hat = (M + h_implicit * torch.diag_embed(damping + c_fric)
                      if h_implicit else M)
+        return PreSolve(kin=kin, com=com, cvel=cvel, contacts=contacts,
+                        qfrc_smooth=qfrc_smooth, M_hat=M_hat, lam0=lam0)
 
-        with tracing.span("engine.constraints"):
-            res = solve_constraints(
-                m, com, M_hat, qfrc_smooth, qpos, qvel, contacts,
-                self.body_dof, self.limit_table, iterations=self.iterations,
-                lam0=lam0, cone=self.cone)
-            lam = self._scatter_warm(contacts.slot_idx, res.lam)
-
-        return EngineData(kin=kin, com=com, cvel=cvel, contacts=contacts,
-                          qacc=res.qacc, qfrc_smooth=qfrc_smooth,
-                          qfrc_constraint=res.qfrc_constraint, lam=lam)
+    def _assemble(self, pre: PreSolve, qpos, qvel) -> SolveInputs:
+        return assemble(self.m, pre.com, pre.M_hat, pre.qfrc_smooth, qpos,
+                        qvel, pre.contacts, self.body_dof, self.limit_table,
+                        lam0=pre.lam0)
 
     # ---- pair-keyed warm start ------------------------------------------
     # Carried layout: [normal(K), t1(K), t2(K), limits(L), slot_idx(K) as
@@ -238,15 +279,31 @@ class Engine:
         is ignored, as in the JAX package), weighted (1, 2, 2, 1)/6; the
         data is the pre-step position/velocity view (no fifth forward),
         whose ``lam`` is the empty warm start."""
-        h = self.dt
         if self.integrator == RK4:
             return self._step_rk4(qpos, qvel, ctrl)
         if not self.warm_start_lam:
             lam0 = None
-        d = self.forward(qpos, qvel, ctrl, h_implicit=h, lam0=lam0)
+        d = self.forward(qpos, qvel, ctrl, h_implicit=self.dt, lam0=lam0)
+        return self._euler(qpos, qvel, d)
+
+    def step_pre(self, qpos, qvel, ctrl, lam0=None):
+        """An Euler ``step`` up to the solve: (the step's fields so far,
+        the solve's inputs); then ``solve`` and ``step_post``. RK4 has no
+        such split: four solves a step."""
+        if not self.warm_start_lam:
+            lam0 = None
+        pre = self._smooth(qpos, qvel, ctrl, self.dt, lam0)
+        with tracing.span("engine.constraints"):
+            return pre, self._assemble(pre, qpos, qvel)
+
+    def step_post(self, qpos, qvel, pre: PreSolve, res: SolveResult):
+        """An Euler ``step`` after the solve: (qpos', qvel', EngineData)."""
+        return self._euler(qpos, qvel, self.forward_post(pre, res))
+
+    def _euler(self, qpos, qvel, d: EngineData):
         with tracing.span("engine.integrate"):
-            qvel_new = qvel + d.qacc * h
-            qpos_new = self.integrate_pos(qpos, qvel_new, h)
+            qvel_new = qvel + d.qacc * self.dt
+            qpos_new = self.integrate_pos(qpos, qvel_new, self.dt)
         return qpos_new, qvel_new, d
 
     def _step_rk4(self, qpos, qvel, ctrl):

@@ -6,7 +6,9 @@ per-phase wall-clock prints and Gantt plotter: src/profile_dpenv.py,
 src/profile_subproc_dpenv.py:1-24, src/plot_profiling.py:831-868):
 
 1. ``stage_breakdown``: a batch env step's host time by stage, timed in
-   place by the program's spans (``utils/tracing.py``).
+   place by the program's spans (``utils/tracing.py``), on the step's
+   eager method (``step_auto_reset_eager``): a step replayed as CUDA
+   graphs (``envs/graphs.py``) has no stage spans.
 2. ``solve_breakdown``: the stages inside the forward pass.
 3. ``train_breakdown``: a PPO iteration's rollout, and full iterations
    at 1 and ``epochs`` epochs, so the per-epoch cost is the slope.
@@ -18,11 +20,15 @@ src/profile_subproc_dpenv.py:1-24, src/plot_profiling.py:831-868):
    ``env.physics`` (``engine.kinematics``, ``engine.collision``,
    ``engine.dynamics``, ``engine.constraints`` with ``engine.solve``,
    ``engine.integrate``), ``env.obs``, ``env.reward``, ``env.done`` and
-   ``env.reset`` (the full list: ``utils/tracing.py``).
+   ``env.reset`` (the full list: ``utils/tracing.py``). On the card the
+   steps are the graphs' replays (captured in the warm-up, before the
+   profiler starts): ``env.step`` with ``engine.solve`` between two
+   graph launches, their kernels on the GPU rows.
 
 On the card every timing is taken around a loop that ends in
-``torch.cuda.synchronize()``, after a warm-up call; on the CPU the same
-code times the plain versions, which says nothing of the card.
+``torch.cuda.synchronize()``, after a warm-up (for a rollout, the steps
+that capture its graphs); on the CPU the same code times the plain
+versions, which says nothing of the card.
 
 Usage: python -m deepmimic_mujoco_tpu_torch.tools.profiling
            [--mode stages|solve|sweep|trace|train] [--device cuda]
@@ -35,6 +41,8 @@ import tempfile
 import time
 
 import torch
+
+from deepmimic_mujoco_tpu_torch.envs.graphs import WARMUP_CALLS
 
 
 def _sync(device):
@@ -66,8 +74,9 @@ def _reset(env, batch, seed=0):
 
 
 def stage_breakdown(env, batch: int = 1024, steps: int = 8):
-    """Rows (stage, host ms a step) of ``steps`` batch env steps timed
-    in place by the program's spans under ``tracing.collect()``: first
+    """Rows (stage, host ms a step) of ``steps`` batch env steps (the
+    eager method, each stage in its span) timed in place by the
+    program's spans under ``tracing.collect()``: first
     ``env.step`` whole, then each ``env.*`` and ``engine.*`` stage's
     self time (its spans less the spans inside them, summed within a
     step), the median over the steps."""
@@ -79,12 +88,13 @@ def stage_breakdown(env, batch: int = 1024, steps: int = 8):
     (states, _), g = _reset(env, batch)
     a = torch.zeros(batch, env.action_size, device=dev)
     with torch.no_grad():
-        states, _ = env.step_auto_reset(states, a, g)   # warm-up
+        states, _ = env.step_auto_reset_eager(states, a, g)   # warm-up
         _sync(dev)
         tracing.reset()
         with tracing.collect():
             for _ in range(steps):
-                states, _ = env.step_auto_reset(states, a, g)
+                with tracing.span("env.step"):
+                    states, _ = env.step_auto_reset_eager(states, a, g)
                 _sync(dev)
     spans = tracing.snapshot().spans
     tracing.reset()
@@ -220,9 +230,10 @@ def train_breakdown(env, n_envs: int = 2048, horizon: int = 64,
 
 
 def throughput_sweep(env, batches=(64, 256, 1024, 4096), steps: int = 64,
-                     warmup: int = 2):
+                     warmup: int = WARMUP_CALLS + 1):
     """Rows (batch, env-steps/s): ``steps`` steps of step_auto_reset
-    under 0.1 x N(0, 1) actions, after ``warmup`` steps."""
+    under 0.1 x N(0, 1) actions, after ``warmup`` steps (by default the
+    eager ones and the capture of the batch's graphs)."""
     dev = env.device
     results = []
     for b in batches:
@@ -260,7 +271,8 @@ def trace(env, out_dir: str = None, batch: int = 1024, steps: int = 32):
     if torch.device(dev).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     with torch.no_grad():
-        states, out = env.step_auto_reset(states, a, g)   # warm-up
+        for _ in range(WARMUP_CALLS + 1):   # up to the graphs' capture
+            states, out = env.step_auto_reset(states, a, g)
         _sync(dev)
         with profile(activities=acts) as prof, \
                 tracing.collect(annotate=True):
@@ -303,7 +315,11 @@ def plot_results(rows, path: str, kind: str):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--mode", default="stages",
-                   choices=["stages", "solve", "sweep", "trace", "train"])
+                   choices=["stages", "solve", "sweep", "trace", "train"],
+                   help="stages: host ms by stage of the eager step "
+                        "(step_auto_reset_eager; a replayed step has no "
+                        "stage spans); trace: a profile of the replayed "
+                        "step")
     p.add_argument("--epochs", type=int, default=20)
     p.add_argument("--horizon", type=int, default=64)
     p.add_argument("--env", default="deep_mimic_mujoco",

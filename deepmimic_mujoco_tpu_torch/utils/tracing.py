@@ -55,7 +55,10 @@ Span names (parents indented):
       ppo.host_read
 
 Counters: ``solve.slots``, ``solve.active_slots``, ``solve.limit_rows``,
-``solve.active_limit_rows`` (one value per fused-solve call).
+``solve.active_limit_rows`` (one value per fused-solve call);
+``env.graph_replays`` and ``env.graph_eager`` (one per ``env.step``:
+replayed as CUDA graphs, or run eager; ``envs/graphs.py``). A replayed
+step records ``env.step`` and ``engine.solve`` only.
 """
 from __future__ import annotations
 
@@ -143,6 +146,11 @@ class _Open:
 def _here() -> bool:
     """Whether a collect() block is open in this thread."""
     return bool(getattr(_local, "collecting", 0))
+
+
+def profiling() -> bool:
+    """Whether a torch profiler is active."""
+    return bool(_profiler._is_profiler_enabled)
 
 
 def on() -> bool:

@@ -273,6 +273,10 @@ class _ForcedFramesEnv(DPEnv):
         return torch.randint(0, self.mocap_data_len, (n,),
                              generator=self._cpu_gen).to(self.device)
 
+    def step_auto_reset(self, *args, **kw):
+        # a host draw: a captured step would replay its first draw
+        return self.step_auto_reset_eager(*args, **kw)
+
 
 class _ForcedPPO(PPO):
     """Action noise and permutations drawn on the CPU from fixed seeds."""
@@ -487,18 +491,22 @@ def test_gym_env_step_on_card_matches_cpu(cuda_device):
 
 @pytest.mark.gpu
 def test_stage_breakdown_on_card(cuda_device):
-    """profiling.stage_breakdown at batch 256 on the card: 8 rows, the
-    kernel launched once per call by the forward, full-step and env-step
-    rows and by no other."""
+    """profiling.stage_breakdown at batch 256 on the card: the eager
+    step's spans, ``env.step`` first and every stage after it, the
+    kernel launched once in the warm-up and once in each of the 8
+    steps."""
     from deepmimic_mujoco_tpu_torch.tools.profiling import stage_breakdown
 
     env = DPEnv(motion="walk", robot="humanoid3d", device=cuda_device)
+    before = fs.fused_solve.launches
     rows = stage_breakdown(env, batch=256)
-    assert len(rows) == 8
-    assert {name: n for name, _, _, n in rows} == {
-        "fk": 0, "fk+com": 0, "collision": 0, "crb(M)": 0, "rne(bias)": 0,
-        "forward": 1, "full step": 1, "env step": 1}
-    assert all(ms > 0 for _, ms, _, _ in rows)
+    assert fs.fused_solve.launches - before == 9
+    assert rows[0][0] == "env.step"
+    assert {"env.physics", "engine.kinematics", "engine.collision",
+            "engine.dynamics", "engine.constraints", "engine.solve",
+            "engine.integrate", "env.obs", "env.reward", "env.done",
+            "env.reset"} == {name for name, _ in rows[1:]}
+    assert all(ms > 0 for _, ms in rows)
 
 
 @pytest.mark.gpu
@@ -580,6 +588,132 @@ def test_world1_nccl_on_card_matches_unsharded(cuda_device, tmp_path):
                          ts1.net.state_dict().values()):
         scale = max(float(a.abs().max()), 1e-3)
         assert float((a - b).abs().max()) / scale < 5e-4, k
+
+
+# ---- the env step replayed as CUDA graphs (envs/graphs.py) ------------
+
+GRAPH_STEPS = 64
+
+
+@pytest.fixture(scope="module")
+def graph_envs():
+    """The envs the graph tests step on the card, built once: the
+    benchmark's three cells' (h3d walk, G1 getup at 128 slots, the
+    training CLI's combined env with its handoff buffer)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deepmimic_mujoco_tpu_torch.envs import (
+        DPCombinedEnv, DPCombinedEnvConfig,
+    )
+
+    dev = torch.device("cuda")
+    return {
+        "h3d_walk": DPEnv(motion="walk", robot="humanoid3d", device=dev),
+        "g1_getup_k128": DPEnv(motion="getup_facedown_slow_FSI",
+                               robot="unitree_g1", max_contacts=128,
+                               device=dev),
+        "combined": DPCombinedEnv(cfg=DPCombinedEnvConfig(
+            HANDOFF_BUFFER_FRAC=0.25, FACEDOWN_RSI_FRAC=0.1), device=dev)}
+
+
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, tuple):
+        return [y for v in x for y in _leaves(v)]
+    return []
+
+
+def _same(a, b):
+    """Bit for bit (floats compared as their bits, so NaN equals NaN)."""
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(bits(a), bits(b)))
+
+
+def _graph_rollout(env, eager, steps=GRAPH_STEPS, n_envs=2048, seed=7):
+    """``steps`` steps of ``step_auto_reset`` (or of its eager method)
+    from one seeded reset under seeded actions, the combined env's
+    handoff buffer updated as PPO.rollout updates it: every step's
+    (state, out[, buffer]) and the generator's next draw."""
+    dev = env.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    g_act = torch.Generator(device=dev).manual_seed(seed + 1)
+    combined = hasattr(env, "make_handoff_buffer")
+    step = env.step_auto_reset_eager if eager else env.step_auto_reset
+    steps_out = []
+    with torch.no_grad():
+        state, _ = env.reset(n_envs, generator=g)
+        buf = env.make_handoff_buffer() if combined else None
+        for _ in range(steps):
+            a = torch.rand(n_envs, env.action_size, generator=g_act,
+                           device=dev) * 2 - 1
+            if not combined:
+                state, out = step(state, a, g)
+                steps_out.append((state, out))
+                continue
+            prev, pa = state.motion_id, state.player_action
+            state, out = step(state, a, g, handoff_buf=buf)
+            buf = env.update_handoff_buffer(
+                buf, env.handoff_capture_mask(prev, out), state.qpos,
+                state.qvel, pa, out.motion_id)
+            steps_out.append((state, out, buf))
+        nxt = torch.rand(8, generator=g, device=dev)
+    return steps_out, nxt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["h3d_walk", "g1_getup_k128", "combined"])
+def test_graph_replay_matches_eager_step(graph_envs, name):
+    """64 steps of step_auto_reset at B 2048, replayed as CUDA graphs
+    after the key's warm-up, equal its eager method's bit for bit,
+    auto-resets included; the generator's next draw is equal too (the
+    replays advanced it as the eager steps did). Every step's outputs
+    are compared after the last step: a replay's outputs are the
+    caller's and keep their values past the steps after it."""
+    from deepmimic_mujoco_tpu_torch.envs.graphs import WARMUP_CALLS
+    from deepmimic_mujoco_tpu_torch.utils import tracing
+
+    env = graph_envs[name]
+    want, want_next = _graph_rollout(env, eager=True)
+    tracing.reset()
+    with tracing.collect():
+        got, got_next = _graph_rollout(env, eager=False)
+    snap = tracing.snapshot()
+    tracing.reset()
+    assert snap.calls("env.graph_eager") == WARMUP_CALLS
+    assert snap.calls("env.graph_replays") == GRAPH_STEPS - WARMUP_CALLS
+    assert sum(int(w[1].done.sum()) for w in want) > 0   # resets ran
+    for t, (w, g) in enumerate(zip(want, got)):
+        wl, gl = _leaves(w), _leaves(g)
+        assert len(wl) == len(gl)
+        for i, (a, b) in enumerate(zip(wl, gl)):
+            assert _same(a, b), (name, t, i)
+    assert _same(want_next, got_next)
+
+
+@pytest.mark.gpu
+def test_graph_step_calls_the_solve_once_a_step(graph_envs, monkeypatch):
+    """A replayed step calls ``solver.fused_solve_parts`` from Python
+    once, one kernel launch, each call with an ``active`` tensor of its
+    own (the slot counter and the benchmark's roofline keep it by
+    reference and read it later)."""
+    env = graph_envs["h3d_walk"]
+    seen = []
+    entry = solver.fused_solve_parts
+
+    def record(*args, **kw):
+        seen.append(args[10])
+        return entry(*args, **kw)
+
+    monkeypatch.setattr(solver, "fused_solve_parts", record)
+    before = fs.fused_solve.launches
+    steps = 8
+    _graph_rollout(env, eager=False, steps=steps)
+    torch.cuda.synchronize()
+    assert len(seen) == fs.fused_solve.launches - before == steps
+    assert len({a.data_ptr() for a in seen}) == steps
+    assert all(a.dtype == torch.float32 for a in seen)
 
 
 def test_check_fits_names_the_limit():
