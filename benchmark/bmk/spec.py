@@ -2,8 +2,9 @@
 
 A traffic mix is ``traffic/<name>.json``, a configuration the ``file``
 its entry names, a driver ``drivers/<name>.py`` (named by the traffic
-file), a per-layer metric's reader ``metrics/<metric>.py`` and a cell's
-limits ``reference/limits/<cell>.json``."""
+file), a fault ``faults/<name>.py`` (named by a driver's ``FAULTS``), a
+per-layer metric's reader ``metrics/<metric>.py`` and a cell's limits
+``reference/limits/<cell>.json``."""
 import importlib.util
 import json
 import os

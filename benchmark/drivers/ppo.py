@@ -6,15 +6,19 @@ Set-up builds the env and the train state from the seed and runs
 the check follows (its rollout's env steps drawn from the seed, its
 policy samples, its GAE, and the first three Adam steps of its update).
 The window then loops ``train_iter`` until ``--seconds`` have passed and
-finishes the iteration in flight. End-to-end: ``train_env_steps_per_s``,
-all env steps of the window's iterations over their wall time
-(synchronised at both ends). ``--trace 1`` times ``PPO.rollout`` and
+finishes the iteration in flight. End-to-end: ``train_memory_peak_gb``,
+the card memory the job held at its peak (the allocator's, from set-up
+through the window). The rate, all env steps of the window's iterations
+over their wall time (synchronised at both ends), goes to the info line
+and to a per-layer reader. ``--trace 1`` times ``PPO.rollout`` and
 ``PPO.update`` in the window (each span ends in a synchronize) and
 profiles one iteration after it."""
 import contextlib
 import time
 
 from bmk import capture, card, trace
+
+FAULTS = ("skipped_update", "half_batch", "altered_reward")
 
 
 def build(ctx):
@@ -183,6 +187,7 @@ def run(ctx, mesh=None):
              for k, v in fused_solve.launches_by_plan.items()}
     if mesh is not None:
         counts = {k: (v - counts0[k]) / iters for k, v in mesh.counts.items()}
+    world = 1 if mesh is None else mesh.world
     if ctx.trace:
         prof = trace.Profile()
         with trace.profiled(dev, prof) if lead else _nothing():
@@ -191,15 +196,16 @@ def run(ctx, mesh=None):
             ctx.profile = prof
             cfg = ppo.cfg
             prof.env_steps = cfg.horizon
+            # this rank's share of the global batch's samples
             prof.work = dict(
-                policy_samples=cfg.n_envs * (cfg.horizon + 1),
+                policy_samples=cfg.n_envs // world * (cfg.horizon + 1),
                 train_samples=cfg.epochs * ppo.n_minibatches
-                * cfg.minibatch_size)
+                * (cfg.minibatch_size // world))
             prof.solve_rows = trace.solve_active(prof)
             prof.solves = []
     ctx.info.update(
         card=card.smi() if dev.type == "cuda" else "cpu",
-        window_iters=iters, window_s=wall,
+        window_iters=iters, window_s=wall, window_env_steps=steps,
         iter_host_s=[b - a for a, b in zip(marks[:-1], marks[1:])],
         launches_by_plan=plans,
         launches_per_iter=sum(plans.values()) / max(iters, 1),
@@ -211,11 +217,10 @@ def run(ctx, mesh=None):
     memory_peak = (torch.cuda.max_memory_allocated(dev)
                    if dev.type == "cuda" else 0)
     ctx.obs_act = (ppo.env.obs_size, ppo.env.action_size)
-    world = 1 if mesh is None else mesh.world
     del ppo, ts, stats
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    out = dict(metrics={"train_env_steps_per_s": steps / wall,
+    out = dict(metrics={"train_memory_peak_gb": memory_peak / 1e9,
                         "setup_s": setup_s},
                attempted=steps, failed=0, memory_peak_bytes=memory_peak)
     if lead:

@@ -16,6 +16,8 @@ import time
 from bmk import capture, card, clock, trace
 from bmk.run import percentile
 
+FAULTS = ("unchanged_state", "half_envs", "altered_reward")
+
 
 def run(ctx):
     import torch

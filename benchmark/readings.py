@@ -9,21 +9,12 @@ For each seed it drives the cell's set-up and a short window in one
 process, and prints one JSON line with the program's compared numbers,
 with ``--control`` those of the control (the reference in float32 with
 TF32 matmuls in the program's place, from the same inputs), and with
-``--faults`` those of the program with each named fault planted:
+``--faults`` those of the program with each named fault planted.
 
-- ``half_batch``: the PPO loss takes the first half of each minibatch
-  and its means over that half;
-- ``skipped_update``: each minibatch step of the PPO update computes its
-  loss and leaves the params and Adam's state unchanged;
-- ``altered_reward``: the env step's reward scaled by 1.01 where it is
-  produced;
-- ``unchanged_state``: the env step returns its state unchanged (its
-  outputs are computed as usual);
-- ``half_envs``: the env step advances only the first half of the envs;
-- ``no_exchange``: the ranks of a data-parallel cell reduce nothing
-  (each keeps its own gradients and statistics).
-
-The faults are planted by ``bmk.faults``.
+Each fault is a file ``faults/<name>.py``, planted by ``bmk.faults``;
+the faults a cell must fail are its driver's ``FAULTS``
+(``drivers/<driver>.py``). A data-parallel cell's control is read on
+rank 0 (``bmk/dp.py``) and comes back with its result.
 """
 import argparse
 import json

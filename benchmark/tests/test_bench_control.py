@@ -5,7 +5,8 @@ import pytest
 
 from bmk import spec
 
-CELLS = [w["name"] for w in spec.benchmark()["workloads"]]
+BENCH_JSON = spec.benchmark()
+CELLS = [w["name"] for w in BENCH_JSON["workloads"]]
 SMALL = dict(n_envs=512, check_from=32, horizon=16, minibatch_size=512,
              epochs=2, warmup_iters=1)
 
@@ -17,6 +18,9 @@ def test_control_fails_and_program_passes(cell):
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    chips = spec.workload(BENCH_JSON, cell)["chips"]
+    if torch.cuda.device_count() < chips:
+        pytest.skip(f"the cell needs {chips} CUDA cards")
     import readings
 
     (line,) = readings.main(["--workload", cell, "--seeds", "4400000001",

@@ -25,6 +25,8 @@ def test_traced_run_reads_the_programs_spans(cell, capsys):
     want = {m["name"] for m in spec.per_layer(BENCH_JSON, cell)
             if m["name"].startswith(PROGRAM)}
     assert want
+    driver = spec.traffic(spec.workload(BENCH_JSON, cell)["traffic"])[
+        "driver"]
     tracing.reset()
     out = bmk_run.main(["--workload", cell, "--seed", str(SEED),
                         "--seconds", "0.5", "--trace", "1"],
@@ -41,14 +43,14 @@ def test_traced_run_reads_the_programs_spans(cell, capsys):
     slots = info["solve_slots"]
     assert slots["calls"] == slots["recorded_calls"] > 0
     assert 0.0 <= slots["limit_rows_active_pct"] <= 100.0
-    steps = TINY["trace_steps"] if "rollout" in cell else TINY["horizon"]
+    steps = TINY["trace_steps"] if driver == "rollout" else TINY["horizon"]
     assert slots["calls"] == steps
     assert {"env.step", "env.physics", "engine.solve",
             "env.reset"} <= set(info["env_step_self_ms"])
     assert {"setup.model", "setup.tables", "setup.mocap"} <= set(
         info["setup_spans_s"])
     assert 0 < info["setup_unspanned_s"] < info["setup_s"]
-    if "ppo" in cell:
+    if driver in ("ppo", "ppo_dp"):
         ppo = info["ppo_spans"]
         assert ppo["minibatch_steps"] > 0
         assert {"ppo.iter", "ppo.rollout", "ppo.policy", "ppo.handoff",
