@@ -23,6 +23,14 @@ Random draws come from explicit generators held in the state. The four
 tests hand in the JAX package's key chain there): one action noise per
 collect step, and the minibatch indices, the next-action noise and the
 policy noise once per update.
+
+Spans and counters (``utils/tracing.py``; off, each is a flag check):
+``setup.train_state`` (``init``, which allocates the buffer);
+``sac.iter``; ``sac.collect`` with ``sac.policy`` and
+``sac.buffer_write`` inside it; ``sac.update`` with one
+``sac.update_step`` per update. Each update counts ``sac.updates`` (1)
+and ``sac.buffer_rows`` (the valid rows it draws from), host numbers
+both: nothing is read from the device.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import torch
 from torch import nn
 
 from deepmimic_mujoco_tpu_torch.rl.ppo import Adam
+from deepmimic_mujoco_tpu_torch.utils import tracing
 from deepmimic_mujoco_tpu_torch.utils.device import resolve_device
 
 # optax.adam's default epsilon (PPO keeps 1e-5, SB3's value)
@@ -227,6 +236,7 @@ class SAC:
                             tuple(self.cfg.net_arch), device="cpu",
                             generator=generator).to(self.device)
 
+    @tracing.spanned("setup.train_state")
     def init(self, seed: int = 0, init_actor=None) -> SACState:
         """A fresh state; ``init_actor`` (a state dict, e.g. distilled
         from a PPO policy) replaces the actor's initial weights."""
@@ -281,31 +291,42 @@ class SAC:
         return self._normal(s.gens["pi"], mean)
 
     # ---- one iteration ----------------------------------------------------
+    @tracing.spanned("sac.policy")
+    def policy(self, s: SACState, obs):
+        """(action, log-probability) sampled from the actor at ``obs``:
+        the squashed action before ``action_scale``, its noise drawn by
+        ``draw_action_noise``."""
+        mean, log_std = s.actor(obs)
+        return squash_sample(mean, log_std, self.draw_action_noise(s, mean))
+
+    @tracing.spanned("sac.buffer_write")
+    def write(self, buf: Dict[str, torch.Tensor], idx, rows):
+        """``rows`` (one tensor per field of ``BUFFER_FIELDS``) into the
+        ring buffer's rows ``idx``."""
+        for name, val in zip(BUFFER_FIELDS, rows):
+            buf[name][idx] = val
+
+    @tracing.spanned("sac.collect")
     def collect(self, s: SACState) -> torch.Tensor:
         """``steps_per_iter`` steps of step_auto_reset under the sampled
         actor, each written into the ring buffer at ``(pos + arange(B))
         % buffer_size``. Advances ``s``'s env, buffer and episode fields
-        (not ``buf_full``) and returns the (steps, 4) per-step stats."""
+        (``buf_full`` once the ring has wrapped) and returns the
+        (steps, 4) per-step stats."""
         cfg = self.cfg
         B, n = cfg.n_envs, cfg.buffer_size
-        buf = s.buffer
         states, obs, pos = s.env_states, s.last_obs, s.buf_pos
         ep_ret, ep_len = s.ep_return, s.ep_length
         rows = torch.arange(B, device=self.device)
         stats = []
         with torch.no_grad():
             for _ in range(cfg.steps_per_iter):
-                mean, log_std = s.actor(obs)
-                a, _ = squash_sample(mean, log_std,
-                                     self.draw_action_noise(s, mean))
+                a, _ = self.policy(s, obs)
                 states, out = self.env.step_auto_reset(
                     states, a * cfg.action_scale, s.gens["rsi"])
-                idx = (pos + rows) % n
                 done_f = out.done.to(torch.float32)
-                for name, val in (("obs", obs), ("action", a),
-                                  ("reward", out.reward),
-                                  ("next_obs", out.obs), ("done", done_f)):
-                    buf[name][idx] = val
+                self.write(s.buffer, (pos + rows) % n,
+                           (obs, a, out.reward, out.obs, done_f))
                 ep_ret = ep_ret + out.reward
                 ep_len = ep_len + 1
                 stats.append(torch.stack([
@@ -315,6 +336,7 @@ class SAC:
                 ep_len = torch.where(out.done, 0, ep_len)
                 obs = out.obs
                 pos = (pos + B) % n
+        s.buf_full = s.buf_full or pos < s.buf_pos
         s.env_states, s.last_obs, s.buf_pos = states, obs, pos
         s.ep_return, s.ep_length = ep_ret, ep_len
         return torch.stack(stats)
@@ -325,6 +347,35 @@ class SAC:
             p.grad = g
         opt.step(lr)
 
+    def next_action(self, s: SACState, b_next):
+        """(a', logp(a')): the next action sampled from the actor at the
+        next obs with ``draw_next_noise``."""
+        mean_n, log_std_n = s.actor(b_next)
+        return squash_sample(mean_n, log_std_n,
+                             self.draw_next_noise(s, mean_n))
+
+    def q_target(self, s: SACState, b_rew, b_next, b_done, alpha):
+        """The critics' regression target: r + gamma (1 - done) (min of
+        the target critics at (next obs, a') - alpha logp(a')), a' from
+        ``next_action``."""
+        with torch.no_grad():
+            a_next, logp_next = self.next_action(s, b_next)
+            q1t, q2t = s.target_critic(b_next, a_next)
+            return b_rew + self.cfg.gamma * (1 - b_done) * (
+                torch.minimum(q1t, q2t) - alpha * logp_next)
+
+    def polyak(self, s: SACState):
+        """The target critics' Polyak step: target = (1 - tau) target +
+        tau critic."""
+        tau = self.cfg.tau
+        with torch.no_grad():
+            tparams = list(s.target_critic.parameters())
+            torch._foreach_mul_(tparams, 1 - tau)
+            torch._foreach_add_(tparams,
+                                [p.detach() for p in s.critic.parameters()],
+                                alpha=tau)
+
+    @tracing.spanned("sac.update_step")
     def update_step(self, s: SACState, valid: int, warm: float):
         """One gradient update on a minibatch drawn from the first
         ``valid`` rows; returns (critic loss, actor loss). Order: the
@@ -334,18 +385,14 @@ class SAC:
         ``warm``); the alpha loss on that logp, detached; log_alpha
         clamped after its step; the Polyak step of the target."""
         cfg = self.cfg
+        tracing.count("sac.updates", 1)
+        tracing.count("sac.buffer_rows", valid)
         buf = s.buffer
         idx = self.draw_idx(s, valid)
         b_obs, b_act, b_rew, b_next, b_done = (
             buf[k][idx] for k in BUFFER_FIELDS)
         alpha = s.log_alpha.detach().exp()
-        with torch.no_grad():
-            mean_n, log_std_n = s.actor(b_next)
-            a_next, logp_next = squash_sample(
-                mean_n, log_std_n, self.draw_next_noise(s, mean_n))
-            q1t, q2t = s.target_critic(b_next, a_next)
-            q_target = b_rew + cfg.gamma * (1 - b_done) * (
-                torch.minimum(q1t, q2t) - alpha * logp_next)
+        q_target = self.q_target(s, b_rew, b_next, b_done, alpha)
 
         cparams = list(s.critic.parameters())
         q1, q2 = s.critic(b_obs, b_act)
@@ -372,24 +419,27 @@ class SAC:
                    torch.autograd.grad(alloss, [s.log_alpha]), cfg.alpha_lr)
         with torch.no_grad():
             s.log_alpha.clamp_(cfg.log_alpha_min, LOG_ALPHA_MAX)
-            tparams = list(s.target_critic.parameters())
-            torch._foreach_mul_(tparams, 1 - cfg.tau)
-            torch._foreach_add_(tparams, [p.detach() for p in cparams],
-                                alpha=cfg.tau)
+        self.polyak(s)
         return closs.detach(), aloss.detach()
 
+    @tracing.spanned("sac.update")
+    def update(self, s: SACState, valid: int, warm: float) -> torch.Tensor:
+        """``updates_per_iter`` updates (``update_step``) on minibatches
+        drawn from the first ``valid`` rows, the actor's gradient times
+        ``warm``; returns the (updates, 2) critic and actor losses."""
+        return torch.stack([torch.stack(self.update_step(s, valid, warm))
+                            for _ in range(self.cfg.updates_per_iter)])
+
+    @tracing.spanned("sac.iter")
     def train_iter(self, s: SACState):
         """One iteration (collect + updates); advances ``s`` in place and
         returns (s, SACStats)."""
         cfg = self.cfg
-        pos0 = s.buf_pos
         stats = self.collect(s)
-        s.buf_full = s.buf_full or s.buf_pos < pos0
         valid = cfg.buffer_size if s.buf_full else max(s.buf_pos, 1)
         # the warmup test reads global_step at the iteration's start
         warm = float(s.global_step >= cfg.critic_warmup_steps)
-        losses = torch.stack([torch.stack(self.update_step(s, valid, warm))
-                              for _ in range(cfg.updates_per_iter)])
+        losses = self.update(s, valid, warm)
         s.global_step += cfg.n_envs * cfg.steps_per_iter
         return s, SACStats(
             mean_reward=stats[:, 0].mean(), critic_loss=losses[:, 0].mean(),

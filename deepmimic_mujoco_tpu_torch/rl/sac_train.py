@@ -187,12 +187,11 @@ def eval_episode(env, actor, idx_init: int, action_scale: float = 1.0,
     return total
 
 
-def main(argv=None):
-    args = parse_args(argv)
-
+def build(args):
+    """(env, SACConfig) that parsed ``args`` ask for: a ``DPEnv`` of
+    ``args.robot`` and ``args.motion`` on ``args.device``."""
     from deepmimic_mujoco_tpu_torch.envs import DPEnv
-    from deepmimic_mujoco_tpu_torch.rl import checkpoint
-    from deepmimic_mujoco_tpu_torch.rl.sac import SAC, SACConfig
+    from deepmimic_mujoco_tpu_torch.rl.sac import SACConfig
 
     eng_kw = {k: v for k, v in dict(
         warm_start_lam=args.warm_start_lam,
@@ -209,6 +208,16 @@ def main(argv=None):
                     actor_lr=args.actor_lr,
                     log_alpha_min=args.log_alpha_min,
                     critic_warmup_steps=args.critic_warmup)
+    return env, cfg
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    from deepmimic_mujoco_tpu_torch.rl import checkpoint
+    from deepmimic_mujoco_tpu_torch.rl.sac import SAC
+
+    env, cfg = build(args)
     sac = SAC(env, cfg)
 
     init_actor = None
